@@ -1,10 +1,10 @@
-"""pythoncrt_tpu — TPU-native CRT video effect framework.
+"""pythoncrt_tpu — CRT video effect framework on JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
+A from-scratch JAX/XLA rebuild of the capabilities of
 jaylikesbunda/PythonCRT (a CPU NumPy/OpenCV per-frame effect chain):
 one fused batched effect engine, a CPU oracle defining ground-truth
 bytes, host ffmpeg/cv2 media I/O overlapped with device compute, and
-multi-chip frame/clip sharding via jax.sharding.
+multi-device frame/clip sharding via jax.sharding.
 """
 
 __version__ = "0.1.0"

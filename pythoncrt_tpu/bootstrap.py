@@ -1,7 +1,7 @@
 """Dependency checking (reference crt_filter.py:17-47, redesigned).
 
 The reference pip-installs its requirements at IMPORT time and
-invalidates import caches. On TPU hosts that is the wrong behavior:
+invalidates import caches. On accelerator hosts that is the wrong behavior:
 environments are pinned images, silent installs break reproducibility,
 and a render farm must fail loudly, not mutate itself. The capability
 is kept — one call reports exactly what is missing and how to get it —
@@ -18,9 +18,11 @@ from dataclasses import dataclass
 # (module, pip name, needed for)
 _CORE = (
     ("numpy", "numpy", "everything"),
-    ("jax", "jax", "the TPU/XLA engine"),
-    ("cv2", "opencv-python-headless", "video decode/encode fallback"),
+    ("jax", "jax", "the JAX/XLA engine"),
 )
+# video I/O needs an ffmpeg binary or OpenCV: OpenCV is required only
+# where no ffmpeg binary is found
+_VIDEO = ("cv2", "opencv-python-headless", "video decode/encode without ffmpeg")
 _OPTIONAL = (
     ("PIL", "Pillow", "text overlay rasterization"),
     ("PySide6", "PySide6", "the Qt GUI (CLI works without it)"),
@@ -53,8 +55,12 @@ def check_deps() -> DepReport:
     """Report missing dependencies WITHOUT importing them (find_spec
     only — no import-time side effects, unlike the reference)."""
 
+    from .io.video import find_ffmpeg
+
     def missing(entries):
         return tuple(e for e in entries
                      if importlib.util.find_spec(e[0]) is None)
 
-    return DepReport(missing(_CORE), missing(_OPTIONAL))
+    if find_ffmpeg() is None:
+        return DepReport(missing(_CORE + (_VIDEO,)), missing(_OPTIONAL))
+    return DepReport(missing(_CORE), missing(_OPTIONAL + (_VIDEO,)))

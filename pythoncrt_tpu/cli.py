@@ -2,7 +2,7 @@
 
 Flag surface is name-for-name compatible with the reference CLI
 (crt_filter.py:1153-1207), with the same defaults and the same clamp
-semantics applied by the driver (:1225-1266). TPU-specific additions:
+semantics applied by the driver (:1225-1266). Additions:
 --batch-size, --engine-mode, --rng, --seed, --assoc-scan, --precision,
 --preset, --text-preset, --pipe-format, --segment-frames, --profile,
 --sharding, --devices, --decode-workers, --steps-per-call, --check-deps,
@@ -24,7 +24,7 @@ from .params import EffectParams, TextParams, load_preset, load_text_preset
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pythoncrt-tpu",
-        description="TPU-native CRT video effect renderer",
+        description="CRT video effect renderer (JAX)",
     )
     p.add_argument("--input", type=str, default="")
     p.add_argument("--output", type=str)
@@ -81,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--glitch-amp", type=int, default=0)
     p.add_argument("--glitch-height", type=float, default=0.0)
     p.add_argument("--gui", action="store_true")
-    # --- TPU-native additions ---
+    # --- additions to the reference surface ---
     p.add_argument("--check-deps", action="store_true",
                    help="report missing dependencies and exit (the "
                         "reference's import-time pip bootstrap, "
@@ -101,17 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", type=str, default="exact",
                    choices=["exact", "fast"],
                    help="'exact' keeps <=1 LSB parity with the CPU "
-                        "reference; 'fast' trades up to a few LSB for "
-                        "throughput (single-pass bf16 kernels, direct pow)")
+                        "reference; 'fast' applies the triad gamma with "
+                        "a direct pow instead of the reference's 1024-bin "
+                        "LUT (up to a few LSB off, mostly near black)")
     p.add_argument("--assoc-scan", action="store_true",
                    help="O(log B) associative persistence scan (throughput mode)")
     p.add_argument("--pipe-format", type=str, default="rgb24",
                    choices=["rgb24", "yuv420p"],
                    help="rawvideo decode pipe format (yuv420p halves pipe "
-                        "bandwidth; host converts via the native kernel). "
-                        "rgb24 auto-promotes to planar gbrp pipes when "
-                        "ffmpeg and the config allow (PCRT_NO_PLANAR=1 "
-                        "opts out)")
+                        "bandwidth; host converts via the native kernel)")
     p.add_argument("--segment-frames", type=int, default=0,
                    help="checkpoint the render every N frames (segment "
                         "files + resume journal; re-running the same "

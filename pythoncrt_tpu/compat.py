@@ -12,8 +12,8 @@ switch imports and keep working:
     )
 
 Single-frame calls run through the CPU oracle (bit-identical math to
-the TPU engine; no per-call compilation); process_video runs the TPU
-pipeline. The preview/export split maps to the one-engine design via
+the device engine; no per-call compilation); process_video runs the
+device pipeline. The preview/export split maps to the one-engine design via
 the ``engine`` argument internally (SURVEY.md §7).
 """
 
@@ -276,7 +276,7 @@ def process_video(
     progress_cb: Optional[Callable[[float], None]] = None,
 ) -> bool:
     """Reference process_video signature (crt_filter.py:864-912), running
-    the TPU pipeline; returns used_gpu."""
+    the device pipeline; returns used_gpu."""
     from .pipeline import process_video as _pv
 
     params = EffectParams(

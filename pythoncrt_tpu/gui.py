@@ -1,6 +1,6 @@
 """Qt GUI (optional; reference crt_filter.py:1272-2349).
 
-The GUI requires PySide6, which TPU hosts typically lack; the CLI is the
+The GUI requires PySide6, which headless render hosts typically lack; the CLI is the
 primary surface (SURVEY.md §2.2). When PySide6 is importable the full
 window is provided by pythoncrt_tpu.gui_qt; otherwise launch_gui reports
 the situation and exits cleanly instead of crashing.

@@ -1,22 +1,24 @@
 """Host media I/O: decode, encode, codec selection, capability probes.
 
-TPUs have no video codec blocks (SURVEY.md §2.2), so codecs stay on the
-host — as in the reference, which delegates to ffmpeg/OpenCV binaries
-(crt_filter.py:469-529 raw reader, :938-1014 codec selection). Two
-backends, probed at runtime with tier-by-tier fallback (the reference's
-probe-and-fallback semantics, :141-204, :1024-1032):
+Codecs stay on the host (SURVEY.md §2.2), as in the reference, which
+delegates to ffmpeg/OpenCV binaries (crt_filter.py:469-529 raw reader,
+:938-1014 codec selection). Two backends, probed at runtime with
+tier-by-tier fallback (the reference's probe-and-fallback semantics,
+:141-204, :1024-1032):
 
 1. An ffmpeg executable (FFMPEG_BINARY env, imageio-ffmpeg, or PATH):
    rawvideo pipes for zero-copy decode/encode, x264/NVENC/AMF parameter
    mapping, audio extract/mux.
-2. OpenCV's built-in VideoCapture/VideoWriter (always present here):
-   video-only fallback; audio degrades to mute output exactly like the
-   reference's audio-failure path (crt_filter.py:934-935).
+2. OpenCV's built-in VideoCapture/VideoWriter (optional; imported only
+   when used): video-only fallback; audio degrades to mute output
+   exactly like the reference's audio-failure path
+   (crt_filter.py:934-935).
 """
 
 from __future__ import annotations
 
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass
@@ -157,8 +159,41 @@ class ClipInfo:
         return self.frame_count / self.fps if self.fps > 0 else 0.0
 
 
+def _probe_clip_ffmpeg(exe: str, path: str | Path) -> ClipInfo:
+    """Probe with the ffmpeg binary alone (no ffprobe): the input's
+    stream header gives size and rate, and a stream-copy pass to the
+    null muxer counts the frames without decoding them."""
+    res = subprocess.run(
+        [exe, "-hide_banner", "-nostdin", "-i", str(path), "-map", "0:v:0",
+         "-c", "copy", "-f", "null", "-"],
+        capture_output=True, text=True, errors="replace")
+    err = res.stderr
+    line = re.search(r"Stream #.*Video: .*", err)
+    size = line and re.search(r"\b(\d{2,5})x(\d{2,5})\b", line.group(0))
+    if res.returncode != 0 or not size:
+        raise FileNotFoundError(f"cannot open video: {path}")
+    rate = (re.search(r"([\d.]+) fps", line.group(0))
+            or re.search(r"([\d.]+) tbr", line.group(0)))
+    frames = re.findall(r"frame=\s*(\d+)", err)
+    return ClipInfo(
+        width=int(size.group(1)),
+        height=int(size.group(2)),
+        fps=float(rate.group(1)) if rate else 24.0,
+        frame_count=int(frames[-1]) if frames else 0,
+    )
+
+
 def probe_clip(path: str | Path) -> ClipInfo:
-    import cv2
+    """Size, rate and frame count of a clip: OpenCV when it is
+    installed, otherwise the ffmpeg binary."""
+    try:
+        import cv2
+    except ImportError:
+        exe = find_ffmpeg()
+        if exe is None:
+            raise RuntimeError(
+                "probing a clip needs OpenCV or an ffmpeg binary") from None
+        return _probe_clip_ffmpeg(exe, path)
 
     cap = cv2.VideoCapture(str(path))
     if not cap.isOpened():
@@ -189,8 +224,8 @@ class FFmpegRawReader:
     pipe_format="gbrp" yields PLANAR (3, H, W) uint8 frames in ffmpeg's
     G,B,R plane order — the engine's planar layout consumes these
     untouched (CRTEngine(layout="planar", channel_order="gbr")), so the
-    decoded bytes land in the kernels with zero host repack and zero
-    on-device relayout. Same bytes per frame as rgb24; the caller's
+    decoded bytes reach the engine with zero host repack (the engine
+    converts at the step edges). Same bytes per frame as rgb24; the caller's
     read_into buffer decides the shape (the read is format-blind).
     Reads use the native GIL-released exact-read loop when available.
     """

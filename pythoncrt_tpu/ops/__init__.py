@@ -1,4 +1,4 @@
-"""Device-side effect primitives (JAX/XLA; Pallas variants in ..kernels)."""
+"""Device-side effect primitives (JAX/XLA)."""
 
 from . import blur, color, glitch, resize, warp
 

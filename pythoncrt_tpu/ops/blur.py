@@ -4,7 +4,7 @@ Numerically matches oracle.ops.gaussian_blur_replicate to within a few
 ulps: identical taps in identical order for interior pixels; at the
 borders the replicate-clipped taps are PRE-FOLDED into one coefficient
 per edge (a handful of f32 additions reassociate — orders of magnitude
-under the 1-LSB budget, same folding bloom2's banded masks use).
+under the 1-LSB budget).
 
 Why the fold: the straightforward jnp.pad(mode="edge") lowers to a
 concatenate, which XLA MATERIALIZES before the tap slices read it —
@@ -15,9 +15,7 @@ come back as two rank-1 corrections (static coefficient vectors times
 the first/last row or column), also fused.
 
 Replaces cv2.GaussianBlur at crt_filter.py:610 (bloom) and :234 (triad
-softness, computed host-side instead). Pallas variants live in
-pythoncrt_tpu.kernels.bloom2 (fast-bloom composite; the gaussian
-variant measured slower than this fused XLA form at 1080p).
+softness, computed host-side instead).
 """
 
 from __future__ import annotations

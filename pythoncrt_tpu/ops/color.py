@@ -6,34 +6,11 @@ fuses into the single XLA program the engine emits.
 
 from __future__ import annotations
 
-import os
-
 import jax.numpy as jnp
 import numpy as np
 
 REC709_R, REC709_G, REC709_B = 0.2126, 0.7152, 0.0722
 TRIAD_LUT_SIZE = 1024
-
-
-def pow_final(x: jnp.ndarray, e: float) -> jnp.ndarray:
-    '''pow for the FINAL triad site only — the one applied AFTER the
-    last LUT quantize, with no quantize cliff downstream (only 1-ish-
-    Lipschitz multiplies and the output rint). Default: exp2(e*log2(x))
-    — Mosaic's jnp.power costs 9.7 cyc/vreg of generic special-case
-    handling, while the explog form rides the hardware transcendental
-    unit (measured r4: c3 974 -> ~1150 fps with ALL pow sites explog;
-    this final-site-only default ships c3 at 1022.5 fps official).
-    The TPU exp2/log2 pair carries ~1e-4 relative error — ~0.03 uint8
-    LSB at this site's budget (safe), but WAY outside the budget
-    upstream of a quantize: the all-sites form measured 15.7% of 1080p
-    pixels off (max 2 LSB) vs the oracle, so grade and first-triad pows
-    MUST stay jnp.power. PCRT_POW_EXPLOG=0 restores jnp.power here
-    (bit-matching the r3 output bytes); =all extends it to every site
-    (A/B only — breaks the 1-LSB contract). Inputs are clipped >= 0
-    (log2(0) = -inf -> exp2 -> 0, the correct pow limit).'''
-    if os.environ.get("PCRT_POW_EXPLOG", "final") != "0":
-        return jnp.exp2(np.float32(e) * jnp.log2(x))
-    return jnp.power(x, np.float32(e))
 
 
 def rec709_luma(img: jnp.ndarray) -> jnp.ndarray:
@@ -78,7 +55,7 @@ def _quantize_lut(img: jnp.ndarray) -> jnp.ndarray:
 
     The reference's LUT entries are exactly (i/1024)^g evaluated in f32,
     and i/1024 is exact in f32, so quantize-then-pow reproduces the LUT
-    lookup without a gather — the pow runs on the VPU and fuses.
+    lookup without a gather — the pow stays elementwise and fuses.
     """
     idx = jnp.clip((jnp.clip(img, 0.0, 1.0) * TRIAD_LUT_SIZE).astype(jnp.int32), 0, TRIAD_LUT_SIZE)
     return idx.astype(jnp.float32) * np.float32(1.0 / TRIAD_LUT_SIZE)
@@ -111,53 +88,9 @@ def apply_triad(
         ratio = jnp.clip(y_before / jnp.maximum(y_after, 1e-6), 0.5, 2.0)
         out_lin = out_lin * ratio[..., None]
     if lut_exact:
-        out = pow_final(_quantize_lut(out_lin), 1.0 / g)
+        out = jnp.power(_quantize_lut(out_lin), np.float32(1.0 / g))
     else:
-        out = pow_final(jnp.clip(out_lin, 0.0, 1.0), 1.0 / g)
-    return jnp.clip(out, 0.0, 1.0)
-
-
-def apply_triad_planar(
-    imgs: jnp.ndarray,
-    mask: jnp.ndarray,
-    gamma: float,
-    preserve_luma: bool,
-    lut_exact: bool = True,
-    corder: tuple = (0, 1, 2),
-) -> jnp.ndarray:
-    """apply_triad on the planar (B, 3, H, W) layout (channel axis 1),
-    op-for-op identical per element — broadcasting direction does not
-    change the f32 op sequence. mask: (3, 1, W), already row-permuted so
-    row i applies to plane i. corder: plane i holds color corder[i]
-    (gbrp pipes run (1, 2, 0)); the luma gathers planes by color so the
-    R+G+B f32 summation order matches the oracle exactly, as in the
-    fused kernel. Used by the fused stripe pipeline's XLA epilogue
-    (engine._fused_stages), where the planar layout feeds the warp
-    kernel without a transpose."""
-    g = float(gamma)
-    m = mask[None]  # (1, 3, 1, W)
-    if ((not preserve_luma) and abs(g - 1.0) < 1e-3) or g <= 0.0:
-        return jnp.clip(imgs * m, 0.0, 1.0)
-    if lut_exact:
-        lin = jnp.power(_quantize_lut(imgs), np.float32(g))
-    else:
-        lin = jnp.power(jnp.clip(imgs, 0.0, 1.0), np.float32(g))
-    out_lin = lin * m
-
-    ir, ig, ib = corder.index(0), corder.index(1), corder.index(2)
-
-    def luma(x):
-        return (np.float32(REC709_R) * x[:, ir]
-                + np.float32(REC709_G) * x[:, ig]
-                + np.float32(REC709_B) * x[:, ib])
-
-    if preserve_luma:
-        ratio = jnp.clip(luma(lin) / jnp.maximum(luma(out_lin), 1e-6), 0.5, 2.0)
-        out_lin = out_lin * ratio[:, None]
-    if lut_exact:
-        out = pow_final(_quantize_lut(out_lin), 1.0 / g)
-    else:
-        out = pow_final(jnp.clip(out_lin, 0.0, 1.0), 1.0 / g)
+        out = jnp.power(jnp.clip(out_lin, 0.0, 1.0), np.float32(1.0 / g))
     return jnp.clip(out, 0.0, 1.0)
 
 

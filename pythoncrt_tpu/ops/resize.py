@@ -54,8 +54,8 @@ def remap_nearest_rolls(img: jnp.ndarray, y_map, x_map,
                         y_axis: int = 0, x_axis: int = 1) -> jnp.ndarray:
     """remap_nearest expressed as shift-selected static rolls — exact:
     out[c] = img[map[c]] with map[c] = c - s(c), and roll(v, s)[c] =
-    v[c - s]. Gathers are fusion barriers on TPU; rolls + selects fuse
-    into the surrounding elementwise chain.
+    v[c - s]. A gather can split the surrounding fusion; rolls +
+    selects fuse into the elementwise chain.
 
     y_shifts/x_shifts come from roll_gather_shifts; y_map/x_map are the
     original index maps (device arrays) used to build the per-coordinate
@@ -84,8 +84,8 @@ def resize2x_roll(f, wy_lo, wy_hi, wx_lo, wx_hi):
     """Exact 2x bilinear upsample (dst == 2*src per axis) as repeat +
     static rolls — no gathers, so XLA fuses the whole resize into the
     surrounding elementwise chain (the take-based form lowers to row/col
-    gathers = fusion barriers; the bf16-matmul form costs two MXU dots
-    and truncates the field to bf16).
+    gathers that can split the fusion; the bf16-matmul form costs two
+    dots and truncates the field to bf16).
 
     Arithmetic is bit-identical to resize_bilinear with
     oracle.ops.bilinear_taps weights (crt_filter.py:642 grain upsample):

@@ -4,8 +4,7 @@ The warp's inverse map is static per (H, W, strength), so the host
 precomputes the integer floor coordinates and float fractions
 (oracle.ops.split_map over oracle.engine.barrel_warp_maps) and the
 device does four constant-index gathers with constant-0 out-of-bounds
-taps. Replaces cv2.remap at crt_filter.py:347. A Pallas tiled variant
-lives in pythoncrt_tpu.kernels.warp.
+taps. Replaces cv2.remap at crt_filter.py:347.
 """
 
 from __future__ import annotations

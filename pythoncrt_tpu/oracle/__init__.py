@@ -1,5 +1,5 @@
 """CPU ground-truth oracle: exact NumPy re-implementation of the effect
-chain. Defines the reference bytes the TPU engine is tested against."""
+chain. Defines the reference bytes the device engine is tested against."""
 
 from . import ops
 from .engine import (
@@ -22,6 +22,7 @@ from .engine import (
     triad_mask,
     vignette_mask,
 )
+from .render import render_oracle
 
 __all__ = [
     "ops",
@@ -37,6 +38,7 @@ __all__ = [
     "glitch_rows",
     "persistence_blend",
     "pixelate_index_maps",
+    "render_oracle",
     "scanline_mask_1d",
     "scanline_mask_2d",
     "scanline_slant",

@@ -3,7 +3,7 @@
 Faithful re-implementation of the reference effect chain
 (crt_filter.py:702-861 export engine — the canonical one — with the
 preview-engine glitch variant of :664-686 selectable). This module is
-the referee: TPU outputs are tested against it to <= 1 LSB per channel
+the referee: device outputs are tested against it to <= 1 LSB per channel
 after the uint8 round-trip, and it is also the single source of truth
 for mask/LUT/warp-table constants uploaded to the device.
 
@@ -27,7 +27,7 @@ TRIAD_LUT_SIZE = 1024  # crt_filter.py:246
 
 
 # --------------------------------------------------------------------------
-# Mask / table builders (host constants; shared with the TPU engine)
+# Mask / table builders (host constants; shared with the device engine)
 # --------------------------------------------------------------------------
 
 def scanline_mask_1d(h: int, strength: float, period_px: float, phase_px: float) -> np.ndarray:

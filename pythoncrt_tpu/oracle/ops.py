@@ -1,6 +1,6 @@
 """Ground-truth NumPy image primitives.
 
-These define the *reference bytes* for the whole framework: the TPU
+These define the *reference bytes* for the whole framework: the device
 engine must reproduce them to <= 1 LSB after the uint8 round-trip. They
 model the semantics the upstream reference obtains from OpenCV
 (cv2.resize INTER_NEAREST/INTER_LINEAR, cv2.GaussianBlur with
@@ -78,7 +78,7 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
 def _conv1d_replicate(img: np.ndarray, kernel: np.ndarray, axis: int) -> np.ndarray:
     """Correlate float32 data with a 1-D kernel along ``axis`` with edge
     replication. Taps accumulate in kernel order (defines the rounding
-    order the TPU path mirrors)."""
+    order the device path mirrors)."""
     k = kernel.shape[0]
     if k == 1:
         return img * kernel[0]

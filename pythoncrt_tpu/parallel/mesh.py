@@ -2,7 +2,7 @@
 
 The reference's only parallelism is a 2-worker host thread pool over
 frames with in-order drain (crt_filter.py:1015-1017, :1081-1131). Here
-the same two axes scale across TPU chips over ICI (SURVEY.md §2.3):
+the same two axes scale across devices (SURVEY.md §2.3):
 
 - **Frame-axis DP** (single clip): the batch axis is sharded across the
   mesh. Every stage is frame-local except the persistence IIR
@@ -15,11 +15,11 @@ the same two axes scale across TPU chips over ICI (SURVEY.md §2.3):
   parallel treatment of a linear recurrence, in one shard_map.
   Shard 0 absorbs the stream head (first-frame passthrough / carried
   state) into its summary as a CONSTANT affine map (A=0), so no extra
-  collective is spent on it. Per-step collective budget at 1080p f32
-  (docs/ARCHITECTURE.md has the table): log2(8)+1 = 4 one-frame
-  ppermutes + one masked psum for the replicated carry-out ≈ 6 frame
-  transfers/device vs 14 for the round-3 all_gather form
-  (PCRT_SHARD_COLLECTIVE=all_gather keeps that form for A/B).
+  collective is spent on it. Per-step collective budget: log2(n)+1
+  one-frame ppermutes + one masked psum for the replicated carry-out
+  (about 6 frame transfers per device at n=8) vs 2(n-1) for the
+  all_gather form (PCRT_SHARD_COLLECTIVE=all_gather keeps that form
+  for A/B).
 
 - **Clip-axis DP** (batch renders): clips are independent streams —
   shard the clip axis, zero collectives (BASELINE.json config 5).
@@ -42,6 +42,9 @@ CLIP_AXIS = "clips"
 
 
 def make_mesh(n_devices: Optional[int] = None, axis: str = FRAME_AXIS) -> Mesh:
+    """1-D mesh over the first n devices. The axis follows the
+    algorithm alone: the devices of one host reach each other all to
+    all (NVLink), so device order carries no topology."""
     devs = jax.devices()
     n = n_devices or len(devs)
     if n > len(devs):
@@ -52,7 +55,7 @@ def make_mesh(n_devices: Optional[int] = None, axis: str = FRAME_AXIS) -> Mesh:
 def _check_frame_dims(engine: CRTEngine, frame_dims) -> None:
     """Per-frame dims must match the engine's layout contract; a layout
     mismatch otherwise surfaces as a cryptic shape error deep inside the
-    jitted kernels."""
+    jitted step."""
     exp = (3, engine.h, engine.w) if engine.layout == "planar" \
         else (engine.h, engine.w, 3)
     if tuple(frame_dims) != exp:
@@ -87,10 +90,8 @@ class ShardedCRTEngine:
     prefix composition of per-shard (A, b) summaries (one frame per
     round per device — see the module docstring for the byte budget).
 
-    Round 4 made this path feature-complete vs the single-chip engine:
-    it accepts the engine's planar layout (the pipeline no longer
-    forces NHWC when sharding) and offers process_stack /
-    jitted_multi_step dispatch batching exactly like CRTEngine.
+    It accepts the engine's planar layout and offers process_stack
+    dispatch batching exactly like CRTEngine.
     """
 
     def __init__(self, engine: CRTEngine, mesh: Optional[Mesh] = None) -> None:
@@ -111,15 +112,15 @@ class ShardedCRTEngine:
         axis = FRAME_AXIS
         ndev = self.ndev
         # collective form A/B (module docstring): the ppermute prefix
-        # scan moves ~log2(n)+3 frames/device/step, the round-3
-        # all_gather form ~2(n-1). Kept switchable for on-hardware
-        # comparison; the math differs only in f32 combine order.
+        # scan moves ~log2(n)+3 frames/device/step, the all_gather form
+        # ~2(n-1). Kept switchable for on-hardware comparison; the math
+        # differs only in f32 combine order.
         use_gather = os.environ.get("PCRT_SHARD_COLLECTIVE") == "all_gather"
 
         def broadcast_from_last(val):
             # replicate the last shard's value: a masked psum moves
-            # ~2 frames/device (reduce + broadcast ride ICI) vs the
-            # (n-1)-frame all_gather it replaces
+            # ~2 frames/device (reduce + broadcast) vs the (n-1)-frame
+            # all_gather it replaces
             my = jax.lax.axis_index(axis)
             return jax.lax.psum(
                 jnp.where(my == ndev - 1, val, jnp.zeros_like(val)), axis)
@@ -133,9 +134,9 @@ class ShardedCRTEngine:
             frames/aux sharded. Layout-agnostic: frames/state follow
             the ENGINE's layout ((B, H, W, 3) or planar (B, 3, H, W));
             every op below is elementwise or batch-axis-only."""
-            if eng.layout == "planar" and not eng.planar_ok:
-                # mirror CRTEngine._step's planar fallback: convert at
-                # the shard-local edges (glitch / text-after configs)
+            if eng.layout == "planar":
+                # mirror CRTEngine._step: convert at the shard-local
+                # edges
                 pc = np.array(eng._plane_colors)
                 inv = np.argsort(pc)
                 frames_u8 = jnp.transpose(frames_u8, (0, 2, 3, 1))[..., inv]
@@ -148,9 +149,8 @@ class ShardedCRTEngine:
         def local_core(frames_u8, aux, state, first_arr, c):
             imgs = eng._batch_effects(frames_u8, aux, c)
             if not persist:
-                # _finish owns the uint8 cast (including the scaled
-                # [0, 255] domain the fused warp epilogue emits). The
-                # carried state is the GLOBAL last frame — each shard's
+                # _finish owns the uint8 cast. The carried state is the
+                # GLOBAL last frame — each shard's
                 # _finish returns its LOCAL tail; broadcast the last
                 # shard's (a P() out-spec would silently keep shard 0's).
                 outs, st = eng._finish(imgs, state, first_arr)
@@ -338,10 +338,9 @@ class MultiClipEngine:
 
     process(frames (C, B, H, W, 3), indices (C, B), states (C, H, W, 3))
     — or (C, B, 3, H, W) / (C, 3, H, W) when the engine was built with
-    layout="planar" (round 5: the clip-sharded path accepts the planar
-    layout that won c4, including the in-place glitch + planar persist).
+    layout="planar".
 
-    rng="host" is supported (round 5): every host-rng aux field is a
+    rng="host" is supported: every host-rng aux field is a
     pure function of the frame index (engine.make_aux seeds each frame's
     noise as (seed, index) and derives the glitch fields from the
     frame's phase — engine.py make_aux), so clips sharing frame indices
@@ -355,57 +354,26 @@ class MultiClipEngine:
         self.mesh = mesh if mesh is not None else make_mesh(axis=CLIP_AXIS)
         self.ndev = self.mesh.devices.size
         axis = CLIP_AXIS
-        planar = engine.layout == "planar" and engine.planar_ok
-        edge_convert = engine.layout == "planar" and not engine.planar_ok
+        edge_convert = engine.layout == "planar"
 
         def core(flat, aux, states, first_arr, c):
             # Frames arrive FLAT and clip-major (C*B, H, W, 3): sharding
             # the leading axis hands each device exactly its clips'
-            # frames, and — crucially — the jitted body performs NO
-            # reshapes around the Pallas custom-calls. The round-3 c5
-            # trace showed the old (C, B, ...) shapes + in-jit reshape
-            # costing ~1.2 ms/frame of layout copies at 4K (the custom
-            # calls pin default layouts; XLA inserted copies on both
-            # sides). Clips are independent, so the effects see one flat
-            # batch; only the persistence carry is clip-aware.
+            # frames with no reshape inside the jitted body. Clips are
+            # independent, so the effects see one flat batch; only the
+            # persistence carry is clip-aware.
             imgs = engine._batch_effects(flat, aux, c)
             cl = states.shape[0]
             b = flat.shape[0] // cl
-            if engine._pallas_persist:
-                # One pallas launch walks all clips' frames with
-                # per-clip carry resets at the (static) clip boundaries
-                # + fused uint8 emit.
-                from ..kernels import persist as _kp
-
-                if planar:
-                    # the planar (B, 3H, W) flatten is a FREE view of
-                    # the planar batch — same contract as CRTEngine.
-                    # _finish's planar branch, extended with per-clip
-                    # carries
-                    h, w = engine.h, engine.w
-                    outs, ns = _kp.persistence_scan(
-                        imgs.reshape(cl * b, 3 * h, w), None, first_arr,
-                        engine.params.persistence, engine._interpret,
-                        emit_u8=True,
-                        clip_states=states.reshape(cl, 3 * h, w),
-                    )
-                    return (outs.reshape(imgs.shape),
-                            ns.reshape(states.shape))
-                return _kp.persistence_scan_nhwc(
-                    imgs, None, first_arr, engine.params.persistence,
-                    engine._interpret, clip_states=states,
-                )
             imgs = imgs.reshape((cl, b) + imgs.shape[1:])
             outs, new_states = jax.vmap(
-                lambda im, s: engine._finish(im, s, first_arr,
-                                             allow_pallas=False)
+                lambda im, s: engine._finish(im, s, first_arr)
             )(imgs, states)
             return outs.reshape((cl * b,) + outs.shape[2:]), new_states
 
         def per_shard(flat, aux, states, first_arr, c):
             if edge_convert:
-                # mirror CRTEngine._step's planar fallback (glitch-XLA /
-                # text-after configs): convert to NHWC at the shard
+                # mirror CRTEngine._step: convert to NHWC at the shard
                 # edges, run the NHWC core, convert back
                 pc = np.array(engine._plane_colors)
                 inv = np.argsort(pc)
@@ -417,11 +385,9 @@ class MultiClipEngine:
             return core(flat, aux, states, first_arr, c)
 
         if self.ndev == 1:
-            # single visible device: shard_map's full-to-shard boundary
-            # custom-calls pin operand layouts and provoke full-frame
-            # relayout copies around the Pallas calls (round-3 c5 trace:
-            # ~0.9 ms/frame at 4K). The body IS the whole batch — jit it
-            # directly; multi-device meshes keep the sharded wrapper.
+            # single visible device: the body IS the whole batch — jit
+            # it directly, with no shard_map boundary around it;
+            # multi-device meshes keep the sharded wrapper.
             body = per_shard
         else:
             def aux_spec(field):

@@ -5,7 +5,7 @@ The parameter surface mirrors the reference CLI/preset system
 ranges, :2043-2080 preset JSON keys, :2209-2222 text preset keys).
 
 ``EffectParams`` is a frozen (hashable) dataclass and is passed to the
-TPU engine as a *static* argument: every numeric field is baked into the
+device engine as a *static* argument: every numeric field is baked into the
 compiled XLA program so identity-valued stages vanish at trace time and
 the remaining stages fuse into one program. Recompilation happens only
 when a preset changes, never per frame.

@@ -4,8 +4,7 @@ Same report contract as the reference's perf subsystem
 (crt_filter.py:58-101): thread-safe accumulators keyed by stage name,
 a plain-text report sorted by total time with per-call averages, and an
 iterator wrapper for timing decode. Stage namespaces: ``io.*`` host I/O,
-``fx.*`` effect compute (device step dispatch+sync), ``tpu.*`` device
-internals via jax.profiler annotations.
+``fx.*`` effect compute (device step dispatch+sync).
 """
 
 from __future__ import annotations

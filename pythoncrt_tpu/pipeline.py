@@ -8,7 +8,7 @@ batched device step:
   persistence carry chained on device) -> async device->host copy ->
   encode thread
 
-JAX's async dispatch overlaps the TPU compute of batch N with the host
+JAX's async dispatch overlaps the device compute of batch N with the host
 decode of batch N+1 and the encode of batch N-1, so the device never
 stalls on I/O (BASELINE.json north star). The persistence IIR lives
 inside the device step; the host only threads the carry array through.
@@ -277,14 +277,12 @@ def process_video(
             will_shard = ndev > 1 and batch_size % ndev == 0
         elif sharding not in ("none",):
             raise ValueError(f"sharding must be 'auto' or 'none', got {sharding!r}")
-        # Planar fast path: when ffmpeg pipes both sides, decode gbrp
-        # planes straight into the engine's planar layout and pipe
-        # planar output back to the encoder — zero host repack, zero
-        # on-device relayout (layout="auto" falls back to NHWC for
-        # configs the planar step doesn't cover). Round 4: the sharded
-        # runner takes the planar layout too (ShardedCRTEngine is
-        # layout-agnostic — frames shard on axis 0 either way), so
-        # multi-chip runs keep the single-chip layout win.
+        # Planar pipes: when ffmpeg pipes both sides and the engine
+        # resolves a planar layout, decode gbrp planes straight into it
+        # and pipe planar output back to the encoder with no host
+        # repack; layout="auto" resolves to NHWC, which keeps rgb24
+        # pipes. ShardedCRTEngine is layout-agnostic (frames shard on
+        # axis 0 either way).
         want_planar = planar_pipe_gate(pipe_format)
         eng = CRTEngine(
             params, out_h, out_w, fps_out,
@@ -305,10 +303,9 @@ def process_video(
     segmented = segment_frames > 0
     spc = int(steps_per_call)
     if spc <= 0:
-        # auto: one dispatch per 8 batches at <=1080p (r4: 905->913 fps
-        # at the r3 state, +9.5 at the r4 state; the super-batch holds
-        # spc*B decoded frames in host RAM — ~1.6 GB at 1080p B=32,
-        # acceptable; 4 above 1080p where it would be 6+ GB), for both
+        # auto: one dispatch per 8 batches at <=1080p (the super-batch
+        # holds spc*B decoded frames in host RAM — ~1.6 GB at 1080p
+        # B=32; 4 above 1080p where it would be 6+ GB), for both
         # single-device and sharded runs (ShardedCRTEngine.process_stack
         # scans chunks under one shard_map). Keep per-batch dispatch
         # when segmented (the journal snapshots the carry per batch).
@@ -461,7 +458,7 @@ def process_video(
                     # full super-batch: one multi-step dispatch covers
                     # spc chunks (bitwise == spc process() calls); the
                     # sharded runner's process_stack scans under the
-                    # same shard_map (round 4)
+                    # same shard_map
                     with perf.timed("fx.dispatch"):
                         stack = sb.reshape((spc, batch_size) + sb.shape[1:])
                         idxs = np.arange(idx0, idx0 + feed_bs)

@@ -1,6 +1,6 @@
-"""Stage ablation at the engine level (the one measurement instrument
-this rig's relay can't fool — see ROADMAP.md): measure full-config fps,
-then fps with one stage disabled at a time; the delta is the stage cost.
+"""Stage ablation at the engine level: measure full-config fps on the
+GPU, then fps with one stage disabled at a time; the delta is the
+stage cost.
 The all-off config is the framework floor (u8 entry/exit + dispatch).
 
 Usage: python scripts/ablate.py [c3|c4] [--iters N]
@@ -9,9 +9,10 @@ Usage: python scripts/ablate.py [c3|c4] [--iters N]
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import bench_engine, config_params  # noqa: E402
 

@@ -18,10 +18,13 @@ def test_report_mentions_optional_pyside(capsys):
 
 
 def test_missing_core_dep_fails_with_guidance(monkeypatch, capsys):
+    """Without an ffmpeg binary, OpenCV is the video I/O and required."""
     import importlib.util
 
     import pythoncrt_tpu.bootstrap as bs
+    from pythoncrt_tpu.io import video as vio
 
+    monkeypatch.setattr(vio, "find_ffmpeg", lambda: None)
     real = importlib.util.find_spec
 
     def fake(name, *a, **k):
@@ -34,3 +37,20 @@ def test_missing_core_dep_fails_with_guidance(monkeypatch, capsys):
     rc = main(["--check-deps"])
     assert rc == 4
     assert "MISSING (required): cv2" in capsys.readouterr().out
+
+
+def test_opencv_optional_with_ffmpeg(monkeypatch):
+    """With an ffmpeg binary, OpenCV is optional: its absence is
+    reported, not fatal."""
+    import importlib.util
+
+    import pythoncrt_tpu.bootstrap as bs
+    from pythoncrt_tpu.io import video as vio
+
+    monkeypatch.setattr(vio, "find_ffmpeg", lambda: "/bin/ffmpeg")
+    real = importlib.util.find_spec
+    monkeypatch.setattr(bs.importlib.util, "find_spec", lambda name, *a, **k:
+                        None if name == "cv2" else real(name, *a, **k))
+    rep = bs.check_deps()
+    assert rep.ok
+    assert "missing (optional): cv2" in rep.render()

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 
 from pythoncrt_tpu import CRTEngine, EffectParams, TextParams, oracle
-from pythoncrt_tpu.oracle import ops as oops
+from pythoncrt_tpu.oracle import render_oracle
 
 H, W, FPS = 48, 64, 24.0
 
@@ -27,36 +27,11 @@ def identity_params(**overrides) -> EffectParams:
     return EffectParams(**d)
 
 
-def render_oracle(eng: CRTEngine, frames: np.ndarray, indices=None) -> np.ndarray:
-    """Reference render: per-frame oracle chain + serial persistence,
-    using the exact same aux fields the engine consumed."""
-    p = eng.params
-    b = frames.shape[0]
-    indices = np.arange(b) if indices is None else np.asarray(indices)
-    aux = eng.make_aux(indices)
-    phase = np.asarray(aux.phase)
-    noise = None if aux.noise is None else np.asarray(aux.noise)
-    text_rgba = getattr(eng, "_text_rgba_np", None)
-    outs, prev = [], None
-    for j in range(b):
-        t = float(indices[j]) / eng.fps
-        img = oracle.apply_effects(
-            frames[j], p,
-            phase_px=float(phase[j]), time_sec=t,
-            noise_field=None if noise is None else noise[j],
-            text_rgba=text_rgba,
-            engine=eng.engine,
-        )
-        img = oracle.persistence_blend(prev, img, p.persistence if p.persistence_on else 0.0)
-        prev = img
-        outs.append(oops.to_uint8(img))
-    return np.stack(outs)
-
-
-def assert_lsb(eng: CRTEngine, frames: np.ndarray, tol: int = 1):
+def assert_lsb(eng: CRTEngine, frames: np.ndarray, tol: int = 1,
+               text_rgba=None):
     got, _ = eng.process(frames)
     got = np.asarray(got)
-    want = render_oracle(eng, frames)
+    want = render_oracle(eng, frames, text_rgba=text_rgba)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= tol, f"max diff {diff.max()} > {tol} (mean {diff.mean():.4f})"
 
@@ -123,8 +98,7 @@ def test_kitchen_sink_full_stack(frames_small):
 
 def test_fast_precision_close_not_exact(frames_small):
     """--precision fast: documented deviation — within a few LSB of the
-    oracle (direct pow instead of the LUT-exact triad path here; the
-    kernels' single-pass bf16 split is covered in test_kernels)."""
+    oracle (direct pow instead of the LUT-exact triad path)."""
     p = EffectParams(
         scanline_strength=0.6, triad_strength=0.4, triad_gamma=2.2,
         triad_preserve_luma=True, vignette_strength=0.25, gamma=1.2,
@@ -260,8 +234,7 @@ def test_text_overlay_parity(frames_small):
             text=TextParams(text="HI", after=after),
         )
         eng = CRTEngine(p, H, W, FPS, text_rgba=rgba)
-        eng._text_rgba_np = rgba  # let render_oracle see it
-        assert_lsb(eng, frames_small)
+        assert_lsb(eng, frames_small, text_rgba=rgba)
 
 
 def test_property_sampled_params(frames_small):
@@ -343,22 +316,23 @@ def test_multi_step_matches_sequential_steps(frames_small):
     np.testing.assert_array_equal(np.asarray(state_m), state_seq)
 
 
-@pytest.mark.parametrize("mode", ["raw", "half", "off"])
+@pytest.mark.parametrize("mode", ["raw", "half", "off", "roll"])
 def test_grain_upsample_forms_match_oracle(frames_small, monkeypatch, mode):
-    """The three grain-upsample forms — all-in-kernel raw-field dots
-    (default), half-window form (PCRT_GRAIN_RAW=0), and the legacy
-    two-dot XLA form (PCRT_GRAIN_LERP=0) — must each stay <= 1 LSB vs
-    the oracle through a grain-heavy stack (engine.py grain-lerp gate)."""
-    if mode == "half":
-        monkeypatch.setenv("PCRT_GRAIN_RAW", "0")
-    elif mode == "off":
-        monkeypatch.setenv("PCRT_GRAIN_LERP", "0")
+    """Every grain-upsample form must stay <= 1 LSB vs the oracle through
+    a grain-heavy stack (engine.py grain gates): "half" is the default
+    bf16 half-row form, "raw" the take-based taps on the raw field
+    (PCRT_GRAIN_GATHER=1), "off" the two f32 dots at full precision
+    (PCRT_GRAIN_LERP=0) and "roll" the exact roll form
+    (PCRT_GRAIN_ROLL=1)."""
+    env = {"raw": "PCRT_GRAIN_GATHER", "off": "PCRT_GRAIN_LERP",
+           "roll": "PCRT_GRAIN_ROLL"}
+    if mode in env:
+        monkeypatch.setenv(env[mode], "0" if mode == "off" else "1")
     p = identity_params(noise_strength=12.0, grain_size=2,
                         scanline_strength=0.3, bloom_strength=0.3,
                         bloom_sigma=1.2)
     eng = CRTEngine(p, H, W, FPS, rng="host")
-    if mode == "off":
-        assert not eng._grain_lerp
-    else:
-        assert eng._grain_lerp
+    assert eng._grain_lerp == (mode == "half")
+    assert eng._grain_mx == (mode in ("half", "off"))
+    assert eng._grain_roll == (mode == "roll")
     assert_lsb(eng, frames_small[:4])

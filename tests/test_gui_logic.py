@@ -1,6 +1,6 @@
 """Qt-free tests for the GUI's pure logic (reference components #23-25,
 crt_filter.py:1275-1341 preview reader, :1810-1852/:1958-2017 preview
-math). PySide6 is absent on TPU hosts, so everything extractable from
+math). PySide6 is absent on headless hosts, so everything extractable from
 the Qt closure is exercised here."""
 
 import numpy as np
@@ -112,7 +112,7 @@ class TestPreviewReader:
 
 class TestQtOffscreenSmoke:
     """Exercises the real Qt window when PySide6 exists (components
-    #23-25); skipped on headless TPU hosts where it doesn't."""
+    #23-25); skipped on headless hosts where it doesn't."""
 
     def test_window_builds_offscreen(self, clip_file, monkeypatch):
         pytest.importorskip("PySide6", reason="PySide6 not installed "

@@ -2,7 +2,7 @@
 RenderWorker, CRTWindow — reference crt_filter.py:1272-2349) against the
 strict PySide6 behavioral stub in tests/_qt_stub.py.
 
-PySide6 is absent on TPU hosts, so these ~550 lines were previously
+PySide6 is absent on headless hosts, so these ~550 lines were previously
 exercised only by the (always-skipped) offscreen smoke. The stub
 implements real Qt API/behavior subsets and raises on anything it does
 not know, so constructing the window and driving every action catches
@@ -340,7 +340,7 @@ class TestRenderFlow:
 
         # dialog was seeded from the Output tab's HW-encode state
         assert captured_dlg["gpu_seeded"] is True
-        # preview stopped for the render (one TPU client at a time)
+        # preview stopped for the render (one device client at a time)
         assert not win.timer.isActive()
         # the kwargs reached process_video faithfully
         assert seen["input"] == win.reader.path

@@ -1,729 +1,8 @@
-"""Pallas kernel correctness vs the oracle (interpret mode on CPU)."""
+"""Exact device forms of resampling stages vs the numpy oracle."""
 
 import numpy as np
-import pytest
 
 from pythoncrt_tpu import oracle
-from pythoncrt_tpu.kernels import warp as kwarp
-
-H, W = 32, 256  # kernel needs H%8==0, W%128==0
-
-
-@pytest.mark.parametrize("strength", [0.15, 0.5, 1.0, -0.5])
-def test_warp_kernel_matches_oracle(strength, rng):
-    imgs = rng.random((2, H, W, 3), dtype=np.float32)
-    tables = kwarp.build_warp_tables(H, W, strength)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(H, W, strength)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        # 3-pass bf16 split drops the lo*lo term: bound ~2*2^-18
-        # (~7.6e-6), 500x below the 1-LSB budget of 3.9e-3
-        err = np.abs(got[b] - want).max()
-        assert err < 2e-5, f"strength={strength} err={err}"
-
-
-@pytest.mark.parametrize("strength", [0.1, 0.3])
-def test_warp_kernel_split_path(strength, rng):
-    """The K=128 half-tile split must engage at small strengths (d <= 64)
-    and stay within the exact-mode bound."""
-    imgs = rng.random((2, H, W, 3), dtype=np.float32)
-    tables = kwarp.build_warp_tables(H, W, strength)
-    assert tables.split, f"expected split path at strength {strength}"
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(H, W, strength)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        err = np.abs(got[b] - want).max()
-        assert err < 2e-5, f"strength={strength} err={err}"
-
-
-def test_warp_kernel_full_path_still_used_at_large_d(rng):
-    """Strengths whose displacement span exceeds 64 must fall back to the
-    full-K path."""
-    big = kwarp.build_warp_tables(544, 1920, 1.0)
-    assert big.d > kwarp.HTX  # this config genuinely exceeds the split bound
-    assert not big.split
-
-
-def test_warp_two_class_partition(rng):
-    """128x256 at s=0.5 splits tiles into BOTH window-row classes
-    (byp 16 and 24), exercising the scattered-tile second call and its
-    input_output_aliases pass-through of the first call's tiles."""
-    H2, W2, S = 128, 256, 0.5
-    tables = kwarp.build_warp_tables(H2, W2, S)
-    yt, xt = H2 // kwarp.TY, W2 // kwarp.TX
-    need = np.maximum(
-        tables.ylrel.reshape(yt, kwarp.TY, xt, kwarp.TX).max(axis=(1, 3)),
-        tables.yrrel.reshape(yt, kwarp.TY, xt, kwarp.TX).max(axis=(1, 3)),
-    ) + 1
-    assert (need <= 16).any() and (need > 16).any(), "config no longer two-class"
-    imgs = rng.random((2, H2, W2, 3), dtype=np.float32)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(H2, W2, S)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        err = np.abs(got[b] - want).max()
-        assert err < 2e-5, f"two-class err={err}"
-
-
-def test_warp_four_class_partition(rng):
-    """128x256 at s=0.8 engages the full 8/16/24/byp class ladder —
-    three aliased pass-through calls writing disjoint scattered tiles."""
-    H2, W2, S = 128, 256, 0.8
-    tables = kwarp.build_warp_tables(H2, W2, S)
-    yt, xt = H2 // kwarp.TY, W2 // kwarp.TX
-    need = np.maximum(
-        tables.ylrel.reshape(yt, kwarp.TY, xt, kwarp.TX).max(axis=(1, 3)),
-        tables.yrrel.reshape(yt, kwarp.TY, xt, kwarp.TX).max(axis=(1, 3)),
-    ) + 1
-    counts = [(need <= 8).sum(), ((need > 8) & (need <= 16)).sum(),
-              ((need > 16) & (need <= 24)).sum(), (need > 24).sum()]
-    assert all(c > 0 for c in counts), f"config no longer 4-class: {counts}"
-    imgs = rng.random((2, H2, W2, 3), dtype=np.float32)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(H2, W2, S)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        err = np.abs(got[b] - want).max()
-        assert err < 2e-5, f"four-class err={err}"
-
-
-def test_warp_kernel_fpp16_batch(rng):
-    """batch 16 engages fpp=16 (16 frames per program — the grid's
-    frame-group axis collapses to 1); parity must hold frame-for-frame."""
-    H2, W2 = 32, 128
-    tables = kwarp.build_warp_tables(H2, W2, 0.25)
-    imgs = rng.random((16, H2, W2, 3), dtype=np.float32)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(H2, W2, 0.25)
-    for b in (0, 7, 15):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        assert np.abs(got[b] - want).max() < 2e-5
-
-
-def test_warp_compensated_one_pass_lsb_bound(rng, monkeypatch):
-    """The default exact mode: compensated bf16 masks, ONE matmul pass
-    — uint8 outputs within 1 LSB of the oracle (the documented worst
-    case is ~0.75 LSB pre-rint). PCRT_WARP_2PASS=1 restores the 2^-17
-    two-pass split."""
-    from test_engine_vs_oracle import identity_params
-
-    from pythoncrt_tpu import CRTEngine, oracle as _o
-
-    monkeypatch.delenv("PCRT_WARP_2PASS", raising=False)
-    p = identity_params(warp_strength=0.3)
-    eng = CRTEngine(p, H, W, 24.0, pallas="on", interpret=True)
-    assert eng._pallas_warp and eng._warp_1pass
-    frames = rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8)
-    got, _ = eng.process(frames)
-    map_x, map_y = _o.barrel_warp_maps(H, W, 0.3)
-    for b in range(2):
-        want = _o.ops.remap_bilinear_const0(
-            frames[b].astype(np.float32) / 255.0, map_x, map_y)
-        d = np.abs(np.asarray(got[b]).astype(int)
-                   - _o.ops.to_uint8(want).astype(int))
-        assert d.max() <= 1, f"1-pass diff {d.max()}"
-
-
-def test_warp_kernel_fast_mode_tolerance(rng):
-    """exact=False (--precision fast): single bf16 pass, error bounded by
-    ~2^-8 relative (up to a couple of uint8 LSB) — and masks shrink to
-    one array."""
-    imgs = rng.random((2, H, W, 3), dtype=np.float32)
-    tables = kwarp.build_warp_tables(H, W, 0.3)
-    masks = kwarp.build_warp_masks(
-        tables.dxl, tables.dxr, tables.wx0, tables.wx1,
-        tables.ylrel, tables.yrrel, tables.wy0, tables.wy1,
-        wxd=tables.wxd, byp=tables.byp, exact=False, split=tables.split,
-    )
-    assert len(masks) == 2  # m_hi + the combined y-weight mask
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, masks, True, False))
-    map_x, map_y = oracle.barrel_warp_maps(H, W, 0.3)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        err = np.abs(got[b] - want).max()
-        assert err < 2e-2, f"fast-mode err={err}"
-        assert err > 0  # it IS the approximate path
-
-
-@pytest.mark.parametrize("strength", [0.15, 0.5, -0.5])
-def test_warp_kernel_int_domain(strength, rng):
-    """bf16 int-domain path (values on the uint8 grid, 2-pass exact):
-    for inputs already on the grid the pre-rounding is lossless, so the
-    final uint8 must match the oracle's to within the mask-split noise
-    (~255 * 2^-17 ~ 0.002 -> byte-exact except at exact .5 ties)."""
-    frames = rng.integers(0, 256, (2, H, W, 3), dtype=np.uint8)
-    imgs = frames.astype(np.float32) / 255.0
-    tables = kwarp.build_warp_tables(H, W, strength, row_align=16)
-    assert tables.row_align == 16 and (H - tables.byp) % 16 == 0
-    got = np.asarray(
-        kwarp.warp_nhwc(imgs, tables, interpret=True, int_domain=True)
-    )
-    map_x, map_y = oracle.barrel_warp_maps(H, W, strength)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        got_u8 = np.clip(np.rint(got[b] * 255.0), 0, 255).astype(np.int32)
-        want_u8 = oracle.ops.to_uint8(want).astype(np.int32)
-        assert np.abs(got_u8 - want_u8).max() <= 1
-
-
-def test_warp_kernel_int_domain_emit_scaled(rng):
-    """emit_scaled returns the [0, 255] domain directly; the normalized
-    path is the same value times 1/255. The two uint8 casts may flip at
-    EXACT .5 ties (a*(1/255)*255 != a in f32), so equality is asserted
-    away from ties and |diff| <= 1 on them."""
-    frames = rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8)
-    imgs = frames.astype(np.float32) / 255.0
-    tables = kwarp.build_warp_tables(H, W, 0.2, row_align=16)
-    a = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True,
-                                   int_domain=True, emit_scaled=True))
-    b = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True,
-                                   int_domain=True))
-    ua = np.clip(np.rint(a), 0, 255).astype(np.int32)
-    ub = np.clip(np.rint(b * 255.0), 0, 255).astype(np.int32)
-    diff = np.abs(ua - ub)
-    assert diff.max() <= 1
-    near_tie = np.abs(a - np.floor(a) - 0.5) < 1e-4
-    np.testing.assert_array_equal(diff[~near_tie], 0)
-
-
-def test_warp_int_domain_off_grid_lsb_bound(rng):
-    """Mid-chain (off-grid) values: pre-rounding moves each tap <=
-    0.5/255 and bilinear weights sum to <= 1 => final uint8 within
-    1 LSB of the unit-domain result."""
-    imgs = rng.random((1, H, W, 3), dtype=np.float32)
-    tables16 = kwarp.build_warp_tables(H, W, 0.3, row_align=16)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables16, interpret=True,
-                                     int_domain=True))
-    map_x, map_y = oracle.barrel_warp_maps(H, W, 0.3)
-    want = oracle.ops.remap_bilinear_const0(imgs[0], map_x, map_y)
-    g = np.clip(np.rint(got[0] * 255.0), 0, 255).astype(np.int32)
-    wv = oracle.ops.to_uint8(want).astype(np.int32)
-    assert np.abs(g - wv).max() <= 1
-
-
-def test_warp_tables_reject_bad_shapes():
-    with pytest.raises(ValueError):
-        kwarp.build_warp_tables(30, 256, 0.2)
-    with pytest.raises(ValueError):
-        kwarp.build_warp_tables(32, 200, 0.2)
-
-
-def test_warp_zero_strength_identityish(rng):
-    imgs = rng.random((1, H, W, 3), dtype=np.float32)
-    tables = kwarp.build_warp_tables(H, W, 0.0)
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    np.testing.assert_allclose(got[0], imgs[0], atol=2e-5)
-
-
-def test_warp_zero_fill_class(rng):
-    """Round-4 zero-fill class: tiles whose every output pixel has both
-    x- or both y-taps out of frame (the warp's black corners) go through
-    a dedicated no-DMA/no-MAC fill kernel. Asserts the class actually
-    ENGAGES at this shape (otherwise the test silently covers nothing)
-    and that dead tiles are exact 0.0 while the whole frame still
-    matches the oracle."""
-    h2, w2 = 64, 512  # strength 1.0 here yields 4 fully-dead tiles
-    imgs = rng.random((2, h2, w2, 3), dtype=np.float32)
-    tables = kwarp.build_warp_tables(h2, w2, 1.0)
-    # replicate warp_nhwc's liveness predicate (warp.py tile_alive)
-    alive_px = (((tables.wx0 > 0) | (tables.wx1 > 0))
-                & ((tables.wy0 > 0) | (tables.wy1 > 0)))
-    yt, xt = h2 // kwarp.TY, w2 // kwarp.TX
-    tile_alive = np.asarray(
-        alive_px.reshape(yt, kwarp.TY, xt, kwarp.TX).any(axis=(1, 3)))
-    assert (~tile_alive).sum() >= 4, "fill class did not engage"
-    got = np.asarray(kwarp.warp_nhwc(imgs, tables, interpret=True))
-    map_x, map_y = oracle.barrel_warp_maps(h2, w2, 1.0)
-    for b in range(2):
-        want = oracle.ops.remap_bilinear_const0(imgs[b], map_x, map_y)
-        assert np.abs(got[b] - want).max() < 2e-5
-        for i, j in zip(*np.nonzero(~tile_alive)):
-            tile = got[b][i * kwarp.TY:(i + 1) * kwarp.TY,
-                          j * kwarp.TX:(j + 1) * kwarp.TX]
-            np.testing.assert_array_equal(tile, 0.0)
-
-
-class TestBloom3Kernel:
-    """The exact fused gaussian stripe kernel: same f32 op sequence as
-    the engine's XLA path. Tolerance is 1 ulp, not bit-equality: the
-    compiler is free to contract mul+add to FMA differently per fusion
-    — the SAME freedom the existing jitted XLA path has vs the numpy
-    oracle (suite-green for two rounds), so the pre-triad-quantize
-    deviation class is unchanged."""
-
-    @pytest.mark.parametrize("sigma,thr,H2", [
-        (1.2, 0.0, 24),   # ty=8 stripes
-        (2.0, 0.4, 24),
-        (0.5, 0.0, 24),
-        (1.2, 0.0, 48),   # ty=24 stripes (the 1080p configuration)
-    ])
-    def test_matches_xla_path_exactly(self, rng, sigma, thr, H2):
-        import jax.numpy as jnp
-
-        from pythoncrt_tpu.kernels import bloom3 as kb3
-        from pythoncrt_tpu.ops import blur as oblur
-        from pythoncrt_tpu.oracle import ops as oops
-
-        W2, strength = 128, 0.25
-        imgs = rng.random((2, H2, W2, 3), dtype=np.float32)
-        spec = kb3.build_bloom3_spec(H2, W2, sigma, strength, thr)
-        got = np.asarray(kb3.bloom3_nhwc(jnp.asarray(imgs), spec, interpret=True))
-        k = max(1, int(round(sigma * 3)) * 2 + 1)
-        taps = tuple(float(t) for t in oops.gaussian_kernel_1d(k, sigma))
-        for b in range(2):
-            src = jnp.asarray(imgs[b])
-            if thr > 0.0:
-                thrf = np.float32(min(0.99, max(0.0, thr)))
-                src = jnp.clip((src - thrf) / np.float32(max(1e-6, 1.0 - float(thrf))), 0.0, 1.0)
-            blurred = oblur.gaussian_blur_replicate(src, taps, taps)
-            want = np.asarray(jnp.clip(jnp.asarray(imgs[b]) + np.float32(strength) * blurred, 0.0, 1.0))
-            np.testing.assert_allclose(got[b], want, atol=1.5e-7)
-
-    @pytest.mark.parametrize("thr,H2", [(0.0, 24), (0.4, 24), (0.0, 48), (0.0, 32)])
-    def test_fast_variant_matches_xla_path(self, rng, thr, H2):
-        """The fast-bloom stripe kernel vs the engine's XLA half-res
-        down+up path — same four resize roundings, 1-ulp FMA class."""
-        import jax.numpy as jnp
-
-        from pythoncrt_tpu.kernels import bloom3 as kb3
-        from pythoncrt_tpu.ops import resize as oresize
-        from pythoncrt_tpu.oracle import ops as oops
-
-        W2, strength = 256, 0.25
-        imgs = rng.random((2, H2, W2, 3), dtype=np.float32)
-        spec = kb3.build_bloom3_fast_spec(H2, W2, strength, thr)
-        got = np.asarray(kb3.bloom3_fast_nhwc(jnp.asarray(imgs), spec,
-                                              interpret=True))
-        h2, w2 = H2 // 2, W2 // 2
-        down = tuple(jnp.asarray(a) for a in
-                     (*oops.bilinear_taps(H2, h2), *oops.bilinear_taps(W2, w2)))
-        up = tuple(jnp.asarray(a) for a in
-                   (*oops.bilinear_taps(h2, H2), *oops.bilinear_taps(w2, W2)))
-        for b in range(2):
-            src = jnp.asarray(imgs[b])
-            if thr > 0.0:
-                thrf = np.float32(min(0.99, max(0.0, thr)))
-                src = jnp.clip((src - thrf) / np.float32(max(1e-6, 1.0 - float(thrf))), 0.0, 1.0)
-            ds = oresize.resize_bilinear(src, *down)
-            blurred = oresize.resize_bilinear(ds, *up)
-            want = np.asarray(jnp.clip(jnp.asarray(imgs[b]) + np.float32(strength) * blurred, 0.0, 1.0))
-            np.testing.assert_allclose(got[b], want, atol=1.5e-7)
-
-    def test_engine_dispatches_bloom3(self, rng):
-        from test_engine_vs_oracle import identity_params
-
-        from pythoncrt_tpu import CRTEngine
-
-        p = identity_params(bloom_strength=0.3, bloom_sigma=1.2, fast_bloom=False)
-        eng_k = CRTEngine(p, 24, 128, 24.0, pallas="on", interpret=True)
-        assert eng_k._pallas_bloom3
-        eng_x = CRTEngine(p, 24, 128, 24.0, pallas="off")
-        frames = rng.integers(0, 256, (4, 24, 128, 3), dtype=np.uint8)
-        a, _ = eng_k.process(frames)
-        b, _ = eng_x.process(frames)
-        # 1-ulp FMA-contraction class (see class docstring): u8 outputs
-        # may flip at exact rounding ties, never by more
-        d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
-        assert d.max() <= 1 and (d > 0).mean() < 0.01
-
-    def test_engine_dispatches_fast_variant(self, rng):
-        """fast_bloom=True must route to bloom3_fast (NOT the gaussian
-        kernel) and match the pallas-off engine."""
-        from test_engine_vs_oracle import identity_params
-
-        from pythoncrt_tpu import CRTEngine
-
-        p = identity_params(bloom_strength=0.3, fast_bloom=True)
-        eng_k = CRTEngine(p, 24, 128, 24.0, pallas="on", interpret=True)
-        assert eng_k._pallas_bloom3 and eng_k._bloom3_fast
-        eng_x = CRTEngine(p, 24, 128, 24.0, pallas="off")
-        frames = rng.integers(0, 256, (4, 24, 128, 3), dtype=np.uint8)
-        a, _ = eng_k.process(frames)
-        b, _ = eng_x.process(frames)
-        d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
-        assert d.max() <= 1 and (d > 0).mean() < 0.01
-
-    def test_engine_bloom3_with_triad_lsb(self, rng):
-        """Through the triad LUT quantize (the step-function stage the
-        bloom feeds): uint8 outputs within 1 LSB, flips rare — the same
-        bound the whole suite holds the engine to vs the oracle."""
-        from test_engine_vs_oracle import identity_params
-
-        from pythoncrt_tpu import CRTEngine
-
-        p = identity_params(bloom_strength=0.3, bloom_sigma=1.2,
-                            fast_bloom=False, triad_strength=0.35,
-                            triad_gamma=2.2)
-        eng_k = CRTEngine(p, 24, 128, 24.0, pallas="on", interpret=True)
-        assert eng_k._pallas_bloom3
-        eng_x = CRTEngine(p, 24, 128, 24.0, pallas="off")
-        frames = rng.integers(0, 256, (4, 24, 128, 3), dtype=np.uint8)
-        a, _ = eng_k.process(frames)
-        b, _ = eng_x.process(frames)
-        d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
-        assert d.max() <= 1 and (d > 0).mean() < 0.01
-
-
-class TestBloom2Kernel:
-    @pytest.mark.parametrize("sigma,thr", [(1.2, 0.0), (2.0, 0.4), (0.5, 0.0)])
-    def test_gaussian_matches_oracle(self, rng, sigma, thr):
-        from pythoncrt_tpu.kernels import bloom2 as kb2
-
-        B, strength = 2, 0.3
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        spec = kb2.build_bloom2_spec(H, W, variant="gaussian", sigma=sigma,
-                                     strength=strength, threshold=thr)
-        got = np.asarray(kb2.bloom2_nhwc(imgs, spec, interpret=True))
-        k = max(1, int(round(sigma * 3)) * 2 + 1)
-        for b in range(B):
-            src = imgs[b]
-            if thr > 0:
-                t = np.float32(min(0.99, max(0.0, thr)))
-                src = np.clip((imgs[b] - t) / max(1e-6, 1.0 - float(t)), 0, 1)
-            blur = oracle.ops.gaussian_blur_replicate(src, k, k, sigma, sigma)
-            want = np.clip(imgs[b] + np.float32(strength) * blur, 0, 1)
-            err = np.abs(got[b] - want).max()
-            # composed border folds + MXU-order accumulation: ~1e-6,
-            # three orders under the 1-LSB budget (see module docstring)
-            assert err < 1e-5, f"sigma={sigma} thr={thr} err={err}"
-
-    def test_fast_matches_oracle(self, rng):
-        from pythoncrt_tpu.kernels import bloom2 as kb2
-
-        imgs = rng.random((2, H, W, 3), dtype=np.float32)
-        spec = kb2.build_bloom2_spec(H, W, variant="fast", strength=0.4,
-                                     threshold=0.2)
-        got = np.asarray(kb2.bloom2_nhwc(imgs, spec, interpret=True))
-        for b in range(2):
-            src = np.clip((imgs[b] - np.float32(0.2)) / np.float32(0.8), 0, 1)
-            ds = oracle.ops.resize_bilinear(src, H // 2, W // 2)
-            blur = oracle.ops.resize_bilinear(ds, H, W)
-            want = np.clip(imgs[b] + np.float32(0.4) * blur, 0, 1)
-            err = np.abs(got[b] - want).max()
-            assert err < 1e-5, f"fast err={err}"
-
-    def test_rejects_bad_shapes(self):
-        from pythoncrt_tpu.kernels import bloom2 as kb2
-
-        with pytest.raises(ValueError):
-            kb2.build_bloom2_spec(30, 256, variant="gaussian", sigma=1.0)
-        with pytest.raises(ValueError):
-            kb2.build_bloom2_spec(32, 200, variant="fast")
-
-    @pytest.mark.parametrize("variant,kwargs", [
-        ("gaussian", dict(sigma=1.2, strength=0.3)),
-        ("fast", dict(strength=0.4, threshold=0.2)),
-    ])
-    def test_pipelined_matches_manual(self, rng, variant, kwargs):
-        """The pipelined-pieces variant assembles the overlapping window
-        from non-overlapping BlockSpec pieces; it must equal the
-        manual-DMA kernel to f32 noise."""
-        from pythoncrt_tpu.kernels import bloom2 as kb2
-
-        imgs = rng.random((2, H, W, 3), dtype=np.float32)
-        spec = kb2.build_bloom2_spec(H, W, variant=variant, **kwargs)
-        a = np.asarray(kb2.bloom2_nhwc(imgs, spec, interpret=True))
-        b = np.asarray(kb2.bloom2_nhwc_pipelined(imgs, spec, interpret=True))
-        assert np.abs(a - b).max() < 1e-6
-
-
-class TestGlitchKernel:
-    def test_shear_matches_take_along_axis(self, rng):
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W, L = 2, 48, 256, 16
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        y0 = 20  # 28 rows -> pads to 32
-        rows = H - y0
-        seg_offs = rng.normal(0, 5, (B, rows, W // L)).astype(np.float32)
-        got = np.asarray(
-            kglitch.shear_band_batched(imgs, y0, seg_offs, L, interpret=True)
-        )
-        seg_index = np.arange(W) // L
-        for b in range(B):
-            per_px = seg_offs[b][:, seg_index]
-            want = oracle.apply_glitch_gather(imgs[b], y0, per_px)
-            # 2-term bf16 value split: bound ~2^-17, 160x below 1 LSB
-            np.testing.assert_allclose(got[b], want, atol=1e-5)
-
-    def test_shear_per_row_offsets(self, rng):
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W = 1, 32, 128
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        y0 = 8
-        offs = rng.normal(0, 200, (B, H - y0, 1)).astype(np.float32)  # big -> wraps
-        got = np.asarray(kglitch.shear_band_batched(imgs, y0, offs, W, interpret=True))
-        want = oracle.apply_glitch_gather(imgs[0], y0, offs[0, :, 0])
-        np.testing.assert_allclose(got[0], want, atol=1e-5)
-
-    @pytest.mark.parametrize("off_val", [128, -128, 129, -129])
-    def test_window_clamp_boundary(self, rng, off_val):
-        """Offsets at exactly +-CLAMP ride the bounded-window kernel;
-        one past it must route to the full-width fallback — both exact."""
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W, L = 1, 16, 256, 32
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        y0 = 8
-        offs = np.full((B, H - y0, W // L), off_val, np.float32)
-        got = np.asarray(kglitch.shear_band_batched(imgs, y0, offs, L,
-                                                    interpret=True))
-        want = oracle.apply_glitch_gather(
-            imgs[0], y0, np.full(H - y0, off_val, np.float32))
-        np.testing.assert_allclose(got[0], want, atol=1e-5)
-
-    def test_rows_above_band_untouched(self, rng):
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W, L = 1, 32, 128, 8
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        y0 = 13  # 19 rows -> pad 5 identity rows
-        offs = rng.normal(0, 3, (B, H - y0, W // L)).astype(np.float32)
-        got = np.asarray(kglitch.shear_band_batched(imgs, y0, offs, L, interpret=True))
-        np.testing.assert_array_equal(got[0, :y0], imgs[0, :y0])
-
-    def test_planar_inplace_matches_oracle(self, rng):
-        """H % 8 == 0 routes the planar entry through the in-place
-        full-frame kernel (r4): band rows match the oracle gather, and
-        every row above the band — including the 8-alignment pad rows
-        inside the first block — is BITWISE untouched."""
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W, L = 2, 48, 256, 16
-        imgs = rng.random((B, 3, H, W), dtype=np.float32)
-        y0 = 21  # 27 rows -> pad 5, y0p = 16 (8-aligned: in-place path)
-        rows = H - y0
-        seg_offs = rng.normal(0, 5, (B, rows, W // L)).astype(np.float32)
-        got = np.asarray(kglitch.shear_band_batched_planar(
-            imgs, y0, seg_offs, L, interpret=True))
-        seg_index = np.arange(W) // L
-        for b in range(B):
-            nhwc = np.transpose(imgs[b], (1, 2, 0))
-            want = oracle.apply_glitch_gather(
-                nhwc, y0, seg_offs[b][:, seg_index])
-            np.testing.assert_allclose(
-                np.transpose(got[b], (1, 2, 0)), want, atol=1e-5)
-            np.testing.assert_array_equal(got[b, :, :y0], imgs[b, :, :y0])
-
-    @pytest.mark.parametrize("bound,expect_clamp", [(6.0, 32), (40.0, 64),
-                                                    (100.0, 128), (999.0, 128)])
-    def test_pick_clamp_ladder(self, bound, expect_clamp):
-        """The static window half-width follows the caller's offset
-        bound (r4): smallest of {32, 64, 128} covering it, CLAMP when
-        unbounded or beyond the ladder."""
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        assert kglitch._pick_clamp(bound) == expect_clamp
-        assert kglitch._pick_clamp(None) == kglitch.CLAMP
-
-    @pytest.mark.parametrize("clamp", [32, 64])
-    def test_planar_inplace_small_clamp(self, rng, monkeypatch, clamp):
-        """A narrow static window (off_bound from a small amp) matches
-        the oracle; draws beyond it still ride the full-width fallback
-        in-kernel (fits=0)."""
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        monkeypatch.setenv("PCRT_GLITCH_CLAMP", str(clamp))
-        B, H, W, L = 1, 32, 256, 16
-        imgs = rng.random((B, 3, H, W), dtype=np.float32)
-        y0 = 16
-        rows = H - y0
-        seg_index = np.arange(W) // L
-        for off_scale in (clamp - 2, clamp + 3):  # window hit + fallback
-            offs = rng.uniform(-off_scale, off_scale,
-                               (B, rows, W // L)).astype(np.float32)
-            offs[0, 0, 0] = off_scale  # force the extreme
-            got = np.asarray(kglitch.shear_band_batched_planar(
-                imgs, y0, offs, L, interpret=True))
-            want = oracle.apply_glitch_gather(
-                np.transpose(imgs[0], (1, 2, 0)), y0, offs[0][:, seg_index])
-            np.testing.assert_allclose(
-                np.transpose(got[0], (1, 2, 0)), want, atol=1e-5)
-
-    @pytest.mark.parametrize("off_val", [128, 129])
-    def test_planar_inplace_window_fallback(self, rng, off_val):
-        """The in-place path keeps the bounded-window/full-width cond:
-        +-CLAMP rides the window kernel, one past routes to the
-        full-width fallback (whose % W wrap now lives inside the
-        branch) — both exact."""
-        from pythoncrt_tpu.kernels import glitch as kglitch
-
-        B, H, W, L = 1, 16, 256, 32
-        imgs = rng.random((B, 3, H, W), dtype=np.float32)
-        y0 = 8
-        offs = np.full((B, H - y0, W // L), off_val, np.float32)
-        got = np.asarray(kglitch.shear_band_batched_planar(
-            imgs, y0, offs, L, interpret=True))
-        want = oracle.apply_glitch_gather(
-            np.transpose(imgs[0], (1, 2, 0)), y0,
-            np.full(H - y0, off_val, np.float32))
-        np.testing.assert_allclose(
-            np.transpose(got[0], (1, 2, 0)), want, atol=1e-5)
-
-
-class TestBloomKernel:
-    @pytest.mark.parametrize("sigma,thr", [(1.2, 0.0), (2.0, 0.4), (0.5, 0.0)])
-    def test_bloom_matches_oracle(self, rng, sigma, thr):
-        from pythoncrt_tpu.kernels import bloom as kbloom
-
-        B, H, W, strength = 2, 32, 256, 0.3
-        imgs = rng.random((B, H, W, 3), dtype=np.float32)
-        spec = kbloom.build_bloom_spec(H, W, sigma, strength, thr)
-        got = np.asarray(kbloom.bloom_nhwc(imgs, spec, interpret=True))
-        k = max(1, int(round(sigma * 3)) * 2 + 1)
-        for b in range(B):
-            src = imgs[b]
-            if thr > 0:
-                t = np.float32(min(0.99, max(0.0, thr)))
-                src = np.clip((imgs[b] - t) / max(1e-6, 1.0 - float(t)), 0, 1)
-            blur = oracle.ops.gaussian_blur_replicate(src, k, k, sigma, sigma)
-            want = np.clip(imgs[b] + np.float32(0.3) * blur, 0, 1)
-            err = np.abs(got[b] - want).max()
-            assert err < 1e-5, f"sigma={sigma} thr={thr} err={err}"
-
-    def test_bloom_engine_parity_via_pallas(self, frames_small):
-        """Engine with interpret-mode pallas bloom matches the oracle."""
-        from test_engine_vs_oracle import assert_lsb, identity_params
-
-        import pythoncrt_tpu.engine as em
-        from pythoncrt_tpu import CRTEngine
-
-        p = identity_params(bloom_strength=0.4, bloom_sigma=1.5, fast_bloom=False,
-                            bloom_threshold=0.2)
-        eng = CRTEngine(p, 48, 64, 24.0, pallas="off")
-        # 48x64 fails shape gate (64 % 128 != 0): confirm pallas path off
-        eng2 = CRTEngine(p, 48, 64, 24.0, pallas="on", interpret=True)
-        assert not eng2._pallas_bloom
-        assert_lsb(eng, frames_small)
-
-    def test_bloom_kernel_in_engine_conforming_shape(self, rng):
-        from pythoncrt_tpu import CRTEngine, EffectParams, oracle as orc
-        from test_engine_vs_oracle import IDENTITY
-
-        d = dict(IDENTITY)
-        d.update(bloom_strength=0.35, bloom_sigma=1.2, fast_bloom=False)
-        p = EffectParams(**d)
-        import os
-
-        frames = rng.integers(0, 256, (3, 32, 256, 3), dtype=np.uint8)
-        os.environ["PCRT_PALLAS_BLOOM"] = "1"
-        try:
-            eng_px = CRTEngine(p, 32, 256, 24.0, pallas="on", interpret=True)
-        finally:
-            del os.environ["PCRT_PALLAS_BLOOM"]
-        assert eng_px._pallas_bloom
-        eng_ref = CRTEngine(p, 32, 256, 24.0, pallas="off")
-        a, _ = eng_px.process(frames)
-        b, _ = eng_ref.process(frames)
-        assert np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int)).max() <= 1
-
-
-class TestPersistKernel:
-    @pytest.mark.parametrize("first", [True, False])
-    def test_matches_sequential_scan(self, rng, first):
-        from pythoncrt_tpu.kernels import persist as kp
-
-        import jax.numpy as jnp
-
-        B, H2, W2, p = 6, 16, 128, 0.6
-        imgs = rng.random((B, H2, W2, 3), dtype=np.float32)
-        state = rng.random((H2, W2, 3), dtype=np.float32)
-        outs, ns = kp.persistence_scan(
-            jnp.asarray(imgs), jnp.asarray(state),
-            jnp.full((1,), first, jnp.bool_), p, interpret=True,
-        )
-        s = imgs[0] if first else np.clip(
-            np.float32(p) * state + np.float32(1 - p) * imgs[0], 0, 1)
-        want = [s]
-        for t in range(1, B):
-            s = np.clip(np.float32(p) * s + np.float32(1 - p) * imgs[t], 0, 1)
-            want.append(s)
-        # XLA may fuse the blend into an FMA; numpy's mul+add rounds
-        # separately -> agree to ~1 ulp per step
-        np.testing.assert_allclose(np.asarray(outs), np.stack(want), atol=1e-6)
-        np.testing.assert_allclose(np.asarray(ns), want[-1], atol=1e-6)
-
-    def test_tile_pick_feasible_for_large_batches(self):
-        """The joint (ty, tx) search must always return a feasible tile
-        (a greedy ty pick stranded 4K multi-clip batches >= 256 with a
-        StopIteration mid-trace — round-3 review finding)."""
-        from pythoncrt_tpu.kernels import persist as kp
-
-        for b, h, rest in [(256, 6480, 3840), (400, 3240, 1920),
-                           (16, 6480, 3840), (32, 3240, 1920), (4, 16, 384)]:
-            ty, tx = kp._pick_tiles(b, h, rest)
-            assert h % ty == 0 and rest % tx == 0
-            assert b * ty * tx * 4 <= (4 << 20) or (ty, tx) == (8, 128)
-
-    def test_emit_u8_matches_separate_cast(self, rng):
-        from pythoncrt_tpu.kernels import persist as kp
-        from pythoncrt_tpu.ops import color as ocolor
-
-        import jax.numpy as jnp
-
-        B, H2, W2, p = 6, 16, 128, 0.6
-        imgs = rng.random((B, H2, W2, 3), dtype=np.float32)
-        state = rng.random((H2, W2, 3), dtype=np.float32)
-        f = jnp.full((1,), False, jnp.bool_)
-        o_f32, ns_a = kp.persistence_scan(
-            jnp.asarray(imgs), jnp.asarray(state), f, p, interpret=True)
-        o_u8, ns_b = kp.persistence_scan(
-            jnp.asarray(imgs), jnp.asarray(state), f, p, interpret=True,
-            emit_u8=True)
-        assert o_u8.dtype == jnp.uint8
-        np.testing.assert_array_equal(
-            np.asarray(o_u8), np.asarray(ocolor.to_uint8(o_f32)))
-        np.testing.assert_array_equal(np.asarray(ns_a), np.asarray(ns_b))
-
-    @pytest.mark.parametrize("first", [True, False])
-    def test_multiclip_mode_matches_per_clip_scans(self, rng, first):
-        """clip_states mode == running the single-stream kernel once per
-        clip: carries reset at clip boundaries, finals land per clip."""
-        from pythoncrt_tpu.kernels import persist as kp
-
-        import jax.numpy as jnp
-
-        C, B, H2, W2, p = 3, 4, 16, 128, 0.7
-        imgs = rng.random((C * B, H2, W2, 3), dtype=np.float32)
-        states = rng.random((C, H2, W2, 3), dtype=np.float32)
-        f = jnp.full((1,), first, jnp.bool_)
-        outs, ns = kp.persistence_scan(
-            jnp.asarray(imgs), None, f, p, interpret=True,
-            emit_u8=True, clip_states=jnp.asarray(states))
-        assert outs.dtype == jnp.uint8 and ns.shape == states.shape
-        for ci in range(C):
-            o_c, ns_c = kp.persistence_scan(
-                jnp.asarray(imgs[ci * B:(ci + 1) * B]),
-                jnp.asarray(states[ci]), f, p, interpret=True, emit_u8=True)
-            np.testing.assert_array_equal(
-                np.asarray(outs[ci * B:(ci + 1) * B]), np.asarray(o_c))
-            np.testing.assert_allclose(
-                np.asarray(ns[ci]), np.asarray(ns_c), atol=1e-7)
-
-    def test_engine_uses_kernel_and_matches_scan(self, rng):
-        """Interpret engine with the kernel == pallas-off engine (exact
-        same step sequence) across chained batches."""
-        from test_engine_vs_oracle import identity_params
-
-        from pythoncrt_tpu import CRTEngine
-
-        p = identity_params(persistence=0.7)
-        frames = rng.integers(0, 256, (2, 5, 16, 128, 3), dtype=np.uint8)
-        eng_k = CRTEngine(p, 16, 128, 24.0, pallas="on", interpret=True)
-        eng_s = CRTEngine(p, 16, 128, 24.0, pallas="off")
-        assert eng_k._pallas_persist
-        sk = ss = None
-        for i, batch in enumerate(frames):
-            idx = np.arange(5) + 5 * i
-            a, sk = eng_k.process(batch, idx, sk)
-            b, ss = eng_s.process(batch, idx, ss)
-            # interpret-pallas and fused-XLA round the blend's mul+add
-            # differently by ~1 ulp -> uint8 may flip at exact ties
-            d = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
-            assert d.max() <= 1 and (d > 0).mean() < 0.01
 
 
 def test_resize2x_roll_matches_oracle_bitwise(rng):
@@ -748,41 +27,3 @@ def test_resize2x_roll_matches_oracle_bitwise(rng):
             jnp.asarray((1.0 - xf).reshape(1, w)),
             jnp.asarray(xf.reshape(1, w))))
         np.testing.assert_array_equal(got, want, err_msg=f"{gh}x{gw}")
-
-
-class TestPowFinal:
-    """ops/color.pow_final — the r4 final-triad-site explog pow.
-
-    The default explog form ships ONLY at the site after the last LUT
-    quantize (ops/color.py:18-36); these tests pin the knob semantics
-    and the error class that makes that site safe."""
-
-    def test_knob_off_is_bitwise_jnp_power(self, rng, monkeypatch):
-        import jax.numpy as jnp
-
-        from pythoncrt_tpu.ops import color as ocolor
-
-        monkeypatch.setenv("PCRT_POW_EXPLOG", "0")
-        x = jnp.asarray(rng.random((64, 128), dtype=np.float32))
-        got = np.asarray(ocolor.pow_final(x, 1.0 / 2.2))
-        want = np.asarray(jnp.power(x, np.float32(1.0 / 2.2)))
-        np.testing.assert_array_equal(got, want)
-
-    def test_explog_error_class_and_limits(self, rng, monkeypatch):
-        """Default explog: exact at the x=0 and x=1 limits (log2(0) =
-        -inf -> exp2 -> 0; log2(1) = 0 -> exp2 -> 1) and within the
-        ~1e-4-relative class elsewhere — under half the 1-LSB budget
-        this post-quantize site carries (0.5/255 ~ 2e-3)."""
-        import jax.numpy as jnp
-
-        from pythoncrt_tpu.ops import color as ocolor
-
-        monkeypatch.delenv("PCRT_POW_EXPLOG", raising=False)
-        e = 1.0 / 2.2
-        lim = np.asarray(ocolor.pow_final(jnp.asarray([0.0, 1.0]), e))
-        np.testing.assert_array_equal(lim, [0.0, 1.0])
-        x = rng.random((256,), dtype=np.float32) * 0.999 + 1e-4
-        got = np.asarray(ocolor.pow_final(jnp.asarray(x), e))
-        want = np.power(x.astype(np.float64), e)
-        rel = np.abs(got - want) / want
-        assert rel.max() < 5e-4

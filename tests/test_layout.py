@@ -1,8 +1,7 @@
 """Planar layout (engine layout="planar"): bit-identical to the NHWC
-layout on every config class. Transposes carry no arithmetic, so the
-two layouts must agree BITWISE — on the uint8 outputs and on the f32
-carried state — whether the config runs the zero-relayout planar fast
-path (planar_ok) or the edge-conversion fallback (glitch/text-after).
+layout on every config class. The step converts planar frames to NHWC
+at its edges and transposes carry no arithmetic, so the two layouts must
+agree BITWISE — on the uint8 outputs and on the f32 carried state.
 """
 
 import numpy as np
@@ -11,16 +10,16 @@ import pytest
 from pythoncrt_tpu import CRTEngine
 
 from conftest import synth_frames
+from test_engine_configs import B, CASES, FPS, FULL, H, W
 from test_engine_vs_oracle import identity_params
-from test_fused import CASES, FULL, H, W, B, FPS
 
 
 def build(params, **kw):
     kw.setdefault("rng", "host")
-    return CRTEngine(params, H, W, FPS, interpret=True, pallas="on", **kw)
+    return CRTEngine(params, H, W, FPS, **kw)
 
 
-# every fused-path class plus the fallback classes (glitch, 2-D scan)
+# the main config classes (bloom, warp, glitch, persistence, 2-D scan)
 LAYOUT_CASES = ["c3_full", "no_warp", "with_glitch", "with_persistence",
                 "c4_fast", "c2_retro", "c1_scan_vig", "scan_2d",
                 "px3_pre_off"]
@@ -28,8 +27,7 @@ LAYOUT_CASES = ["c3_full", "no_warp", "with_glitch", "with_persistence",
 
 @pytest.mark.parametrize("name", LAYOUT_CASES)
 def test_planar_matches_nhwc(name):
-    overrides = CASES[name][0]
-    p = identity_params(**overrides)
+    p = identity_params(**CASES[name])
     frames = synth_frames(B, H, W, seed=7)
 
     eng_n = build(p)
@@ -47,25 +45,18 @@ def test_planar_matches_nhwc(name):
 
 
 def test_planar_ok_resolution():
-    """planar_ok engages exactly where every stage is layout-agnostic."""
-    assert build(identity_params(**FULL), layout="planar").planar_ok
-    # the glitch kernel is planar-native -> fast path holds
-    assert build(identity_params(**CASES["with_glitch"][0]),
-                 layout="planar").planar_ok
-    # persistence is elementwise -> planar fast path holds
-    assert build(identity_params(**CASES["with_persistence"][0]),
-                 layout="planar").planar_ok
-    # non-fused config -> fallback
-    assert not build(identity_params(**CASES["c1_scan_vig"][0]),
-                     layout="planar").planar_ok
-    # 2-D scanlines: fused kernel rejects -> fallback
-    assert not build(identity_params(**CASES["scan_2d"][0]),
-                     layout="planar").planar_ok
+    """An explicit planar request is honored for every config class:
+    the I/O contract stays planar, whatever the chain runs inside."""
+    for name in ("c3_full", "with_glitch", "with_persistence",
+                 "c1_scan_vig", "scan_2d"):
+        eng = build(identity_params(**CASES[name]), layout="planar")
+        assert eng.layout == "planar", name
+        assert eng.init_state().shape == (3, H, W), name
 
 
 def test_planar_state_carry():
     """Persistence state round-trips across batches in planar layout."""
-    p = identity_params(**CASES["with_persistence"][0])
+    p = identity_params(**CASES["with_persistence"])
     frames = synth_frames(2 * B, H, W, seed=11)
 
     eng_n = build(p)
@@ -90,9 +81,8 @@ GBR = (1, 2, 0)  # ffmpeg gbrp: plane i holds color GBR[i]
                                   "with_glitch", "luma_knee"])
 def test_planar_gbr_matches_rgb(name):
     """channel_order="gbr": feeding ffmpeg's gbrp plane order must give
-    the same bytes as RGB planes, permuted — through the fused kernel's
-    per-channel constants (fast path) and the edge permute (fallback)."""
-    overrides = CASES[name][0]
+    the same bytes as RGB planes, permuted, through the edge permute."""
+    overrides = CASES[name]
     p = identity_params(**overrides)
     frames = synth_frames(B, H, W, seed=5)
     planes_rgb = np.transpose(frames, (0, 3, 1, 2))
@@ -110,19 +100,16 @@ def test_planar_gbr_matches_rgb(name):
 
 
 @pytest.mark.parametrize("name", ["c3_full", "luma_knee"])
-def test_planar_gbr_epilogue_xla_matches_rgb(name, monkeypatch):
-    """PCRT_FUSED_EPI=xla (stages 7-11 as an XLA epilogue instead of
-    in-kernel) must honor the gbr plane order exactly like the fused
-    kernel's branded spec.corder: the triad mask rows and the
-    preserve-luma weights permute to each plane's color."""
-    monkeypatch.setenv("PCRT_FUSED_EPI", "xla")
-    overrides = CASES[name][0]
+def test_planar_gbr_epilogue_xla_matches_rgb(name):
+    """The triad mask rows and the preserve-luma weights in the stage
+    7-11 epilogue must follow each plane's color under the gbr plane
+    order."""
+    overrides = CASES[name]
     p = identity_params(**overrides)
     frames = synth_frames(B, H, W, seed=5)
     planes_rgb = np.transpose(frames, (0, 3, 1, 2))
 
     eng_r = build(p, layout="planar")
-    assert eng_r._fused_epi_xla
     out_r = np.asarray(eng_r.process(planes_rgb)[0])
 
     eng_g = build(p, layout="planar", channel_order="gbr")
@@ -132,8 +119,10 @@ def test_planar_gbr_epilogue_xla_matches_rgb(name, monkeypatch):
 
 
 def test_layout_auto_resolution():
-    assert build(identity_params(**FULL), layout="auto").layout == "planar"
-    assert build(identity_params(**CASES["c1_scan_vig"][0]),
+    """"auto" picks NHWC, the layout the chain runs in, for every
+    config (a planar request converts at the step edges instead)."""
+    assert build(identity_params(**FULL), layout="auto").layout == "nhwc"
+    assert build(identity_params(**CASES["c1_scan_vig"]),
                  layout="auto").layout == "nhwc"
 
 
@@ -150,7 +139,7 @@ def test_planar_mismatched_state_rejected():
     planar engine expects a (3, H, W) carry and must refuse an
     NHWC-shaped one (same documented-deviation refusal as NHWC,
     PARITY.md — never a silent transpose)."""
-    p = identity_params(**CASES["with_persistence"][0])
+    p = identity_params(**CASES["with_persistence"])
     eng_p = build(p, layout="planar")
     pf = np.transpose(synth_frames(B, H, W, seed=13), (0, 3, 1, 2))
     with pytest.raises(ValueError, match="documented deviation"):

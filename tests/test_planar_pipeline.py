@@ -1,8 +1,8 @@
 """Planar (gbrp) pipeline path: ffmpeg decodes G,B,R planes straight
-into the engine's planar layout and the planar output pipes back into
-the encoder — zero host repack, zero on-device relayout. This host has
-no ffmpeg binary, so the subprocess ends are faked; the engine leg and
-the byte contracts are exercised for real (interpret-mode kernels)."""
+into a planar engine and the planar output pipes back into the encoder
+with no host repack. The subprocess ends are faked (no ffmpeg binary is
+assumed); the engine leg and the byte contracts are exercised for
+real."""
 
 import io
 
@@ -146,12 +146,15 @@ class CollectWriter:
         pass
 
 
-def _engine_interpret(monkeypatch):
+def _engine_planar(monkeypatch):
+    """Make the pipeline's layout="auto" request resolve to the planar
+    layout (gbrp pipes), which the engine serves by converting at the
+    step edges; "auto" itself resolves to NHWC."""
     real = pl_mod.CRTEngine
 
     def patched(*a, **kw):
-        kw["interpret"] = True
-        kw["pallas"] = "on"
+        if kw.get("layout") == "auto":
+            kw["layout"] = "planar"
         return real(*a, **kw)
 
     monkeypatch.setattr(pl_mod, "CRTEngine", patched)
@@ -159,10 +162,10 @@ def _engine_interpret(monkeypatch):
 
 def test_planar_pipeline_end_to_end(tmp_path, monkeypatch):
     """process_video on the planar path must produce the same bytes as
-    the NHWC path, permuted: the engine leg runs for real (interpret
-    kernels), only the ffmpeg subprocess ends are faked."""
+    the NHWC path, permuted: the engine leg runs for real, only the
+    ffmpeg subprocess ends are faked."""
     clip = write_clip(tmp_path / "in.mp4", synth_frames(N, H, W, seed=6))
-    _engine_interpret(monkeypatch)
+    _engine_planar(monkeypatch)
 
     # --- run 1: NHWC reference (cv2 reader, raw collector writer) ---
     nhwc_frames: list = []
@@ -199,16 +202,14 @@ def test_planar_pipeline_end_to_end(tmp_path, monkeypatch):
 
 
 def test_planar_pipeline_fallback_config(tmp_path, monkeypatch):
-    """A config outside planar_ok (2-D scanlines: the fused kernel
-    rejects) must make the pipeline fall back to NHWC rgb24 pipes even
-    when ffmpeg is available — layout="auto" resolves per config, and
-    the pipe format follows."""
+    """With layout="auto" resolving to NHWC, the pipeline keeps NHWC
+    rgb24 pipes even when ffmpeg is available — the pipe format follows
+    the engine's layout."""
     p = EffectParams(scanline_strength=0.5, scanline_angle=12.0,
                      scanline_thickness=2.0, triad_strength=0.3,
                      bloom_strength=0.25, fast_bloom=True,
                      vignette_strength=0.2)
     clip = write_clip(tmp_path / "in.mp4", synth_frames(N, H, W, seed=9))
-    _engine_interpret(monkeypatch)
 
     nhwc_frames: list = []
     monkeypatch.setattr(

@@ -135,24 +135,6 @@ class TestClipSharding:
             ref, _ = eng.process(clips[i], np.arange(8), state=None)
             assert u8diff(got[i], ref) <= 1
 
-    def test_multiclip_pallas_persist_flat_batch(self):
-        """The flat-batch multi-clip persistence kernel (per-clip carry
-        resets + fused u8 cast) matches independent per-clip renders
-        under the clip-sharded mesh."""
-        mesh = make_mesh(8, axis="clips")
-        p = EffectParams(persistence=0.5, noise_strength=0.0)
-        eng = CRTEngine(p, 32, 128, FPS, pallas="on", interpret=True)
-        assert eng._pallas_persist
-        clips = np.stack([synth_frames(8, 32, 128, seed=40 + i) for i in range(8)])
-        mc = MultiClipEngine(eng, mesh)
-        o1, states = mc.process(clips[:, :4], np.tile(np.arange(4), (8, 1)))
-        o2, _ = mc.process(clips[:, 4:], np.tile(np.arange(4, 8), (8, 1)),
-                           states=states)
-        got = np.concatenate([np.asarray(o1), np.asarray(o2)], axis=1)
-        for i in range(8):
-            ref, _ = eng.process(clips[i], np.arange(8), state=None)
-            assert u8diff(got[i], ref) <= 1
-
     def test_host_rng_matches_independent_renders(self):
         """rng='host' through the clip-sharded engine (lifted in round 5):
         every host-rng aux field is frame-index keyed, so clips sharing
@@ -192,17 +174,15 @@ class TestClipSharding:
 
 
 class TestMultiClipLayout:
-    """Round 5: MultiClipEngine is layout-complete — the planar layout
-    (the in-place glitch + planar persist that won c4) runs under the
-    clip mesh, the edge-conversion fallback covers planar-not-ok
-    configs, and mis-shaped inputs are rejected instead of silently
-    mis-processed."""
+    """MultiClipEngine is layout-complete: the planar layout runs under
+    the clip mesh (edge conversion, persistence kernel included), and
+    mis-shaped inputs are rejected instead of silently mis-processed."""
 
     def _clip_engines(self, overrides, n=8, hh=48, ww=256):
         from test_engine_vs_oracle import identity_params
 
         p = identity_params(**overrides)
-        kw = dict(rng="host", interpret=True, pallas="on")
+        kw = dict(rng="host")
         eng_n = CRTEngine(p, hh, ww, FPS, **kw)
         eng_p = CRTEngine(p, hh, ww, FPS, layout="planar", **kw)
         clips = np.stack([synth_frames(4, hh, ww, seed=90 + i)
@@ -211,9 +191,9 @@ class TestMultiClipLayout:
         return eng_n, eng_p, clips, idx
 
     def _planar_mc_matches_nhwc(self, overrides):
-        from test_fused import CASES
+        from test_engine_configs import CASES
 
-        eng_n, eng_p, clips, idx = self._clip_engines(CASES[overrides][0])
+        eng_n, eng_p, clips, idx = self._clip_engines(CASES[overrides])
         mesh = make_mesh(8, axis="clips")
         ref, ref_st = MultiClipEngine(eng_n, mesh).process(clips, idx)
         pc = np.ascontiguousarray(np.transpose(clips, (0, 1, 4, 2, 3)))
@@ -224,24 +204,23 @@ class TestMultiClipLayout:
         np.testing.assert_array_equal(got_st, np.asarray(ref_st))
 
     def test_planar_persist_matches_nhwc(self):
-        # planar fast path incl. the flat-batch multi-clip persist kernel
+        # planar clips with persistence under the clip mesh
         eng_n, eng_p, _, _ = self._clip_engines(
             {"persistence": 0.5, "scanline_strength": 0.6,
              "bloom_strength": 0.25, "bloom_sigma": 1.2,
              "fast_bloom": False, "warp_strength": 0.15})
-        assert eng_p.planar_ok and eng_p._pallas_persist
+        assert eng_p.layout == "planar" and eng_p.params.persistence_on
         self._planar_mc_matches_nhwc("with_persistence")
 
     def test_planar_glitch_matches_nhwc(self):
         self._planar_mc_matches_nhwc("with_glitch")
 
     def test_planar_edge_convert_matches_nhwc(self):
-        # 2-D scanlines: outside the fused envelope -> planar_ok False,
-        # the shard-edge NHWC conversion path must still be bitwise
-        from test_fused import CASES
+        # 2-D scanlines: the shard-edge NHWC conversion must be bitwise
+        from test_engine_configs import CASES
 
-        eng_n, eng_p, clips, idx = self._clip_engines(CASES["scan_2d"][0])
-        assert not eng_p.planar_ok
+        eng_n, eng_p, clips, idx = self._clip_engines(CASES["scan_2d"])
+        assert eng_p.layout == "planar"
         self._planar_mc_matches_nhwc("scan_2d")
 
     def test_rejects_mismatched_layout_shape(self):
@@ -256,9 +235,9 @@ class TestMultiClipLayout:
             mcn.process(np.transpose(clips, (0, 1, 4, 2, 3)), idx)
 
     def test_planar_process_stack_matches_sequential(self):
-        from test_fused import CASES
+        from test_engine_configs import CASES
 
-        _, eng_p, clips, _ = self._clip_engines(CASES["with_persistence"][0])
+        _, eng_p, clips, _ = self._clip_engines(CASES["with_persistence"])
         mesh = make_mesh(8, axis="clips")
         mc = MultiClipEngine(eng_p, mesh)
         pc = np.ascontiguousarray(np.transpose(clips, (0, 1, 4, 2, 3)))
@@ -298,10 +277,10 @@ class TestShardedPipeline:
 
 
 class TestShardedPallasKernels:
-    """The Pallas kernels run PER SHARD under shard_map on real
-    multi-chip meshes; interpret mode on the virtual CPU mesh proves
-    the combination traces, shards, and matches the single-device
-    engine (W=128 passes the kernels' lane gate)."""
+    """The structured XLA stages (warp gather, glitch shear) and the full
+    stack under shard_map on the virtual CPU mesh match the
+    single-device engine (real multi-device meshes run the same
+    program per shard)."""
 
     def test_warp_and_glitch_kernels_shard(self, mesh):
         frames = synth_frames(16, 32, 128, seed=11)
@@ -309,8 +288,8 @@ class TestShardedPallasKernels:
             persistence=0.3, warp_strength=0.2, glitch_amp_px=4,
             glitch_height_frac=0.4, noise_strength=0.0,
         )
-        eng = CRTEngine(p, 32, 128, FPS, pallas="on", interpret=True)
-        assert eng._pallas_warp and eng._pallas_glitch
+        eng = CRTEngine(p, 32, 128, FPS, rng="host")
+        assert p.warp_on and p.glitch_on and eng._glitch_rows > 0
         ref, ref_st = eng.process(frames)
         sh = ShardedCRTEngine(eng, mesh)
         got, got_st = sh.process(frames)
@@ -320,8 +299,8 @@ class TestShardedPallasKernels:
         )
 
     def test_fused_pipeline_kernel_shards(self, mesh):
-        """The fused stage-1..11 stripe kernel + planar warp feed under
-        shard_map (kernels/fused.py)."""
+        """The full stateless stack (pixelate, aberration, bloom, triad,
+        vignette, warp) under shard_map."""
         frames = synth_frames(16, 32, 128, seed=13)
         p = EffectParams(
             bloom_strength=0.3, bloom_sigma=1.2, fast_bloom=False,
@@ -329,8 +308,7 @@ class TestShardedPallasKernels:
             aberration_px=1, pixel_size=2, noise_strength=0.0,
             persistence=0.0,
         )
-        eng = CRTEngine(p, 32, 128, FPS, pallas="on", interpret=True)
-        assert eng._pallas_fused and eng._fused_spec.pre
+        eng = CRTEngine(p, 32, 128, FPS)
         ref, ref_st = eng.process(frames)
         sh = ShardedCRTEngine(eng, mesh)
         got, got_st = sh.process(frames)
